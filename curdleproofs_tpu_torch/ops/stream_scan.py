@@ -1,0 +1,159 @@
+"""Streaming group-prefix-scan over digit-sorted point records.
+
+Phase 1 of the host-sorted Pippenger MSM (ops.msm). Counterpart of the JAX
+package's `ops.stream_scan` (`scan_records`, `scan_records_sel`; kernels
+`_build_scan` and `_build_scan_sel`).
+
+  * The n sorted points of each window are laid out column-major over L
+    lanes: lane l holds sorted ranks [l*T, (l+1)*T), flat position
+    w*T*L + t*L + l. Each (window, lane) walks t = 0..T-1 sequentially with
+    the running prefix held by one GPU thread in registers; a step is one
+    Jacobian+affine mixed add.
+  * Per-lane totals come out as a (72, W, L) side output; a small scan over
+    the L lanes (ops.scan._hs_scan) turns them into lane offsets, and only
+    bucket-boundary prefixes are ever stitched (ops.msm).
+
+Two kernels (`scan_kernel<SEL>` in ../csrc/kernels.cu), both bound by
+operations — about 11 Montgomery products per record against 49 words read:
+
+  * `scan_records` (`scan_full`): the complete mixed add, every prefix
+    written.
+  * `scan_records_sel` (`scan_sel`): the mixed add WITHOUT the doubling
+    branch plus a per-window flag, and only the prefixes the host selected
+    per step are written. If a flag fires, the caller redoes the work on the
+    complete scan: exactness is kept, adversarial inputs only cost time.
+
+The plain PyTorch versions (`scan_records_ref`, `scan_records_sel_ref`) loop
+over t with the formulas of ops.g1 and are what CPU tensors get.
+"""
+from __future__ import annotations
+
+import torch
+
+from curdleproofs_tpu_torch.ops import cuda_g1
+from curdleproofs_tpu_torch.ops import g1 as og
+
+# lane width override for tests and tuning (0 = default)
+_LANES = 0
+
+
+def pick_lanes(n: int) -> int:
+    """Scan lane width: the number of sequential chains per window. Wider L
+    means more threads and shorter chains at the cost of more lane-offset
+    stitch work (2*log2(L)*L adds per window). Kept at the JAX package's 512
+    so every intermediate compares at equal L; not yet tuned for this card."""
+    if _LANES:
+        return min(_LANES, n)
+    return min(512, n)
+
+
+def _check_records(records: torch.Tensor, W: int, T: int, L: int) -> None:
+    if tuple(records.shape) != (49, W * T * L):
+        raise ValueError(
+            f"records: expected shape {(49, W * T * L)}, got {tuple(records.shape)}"
+        )
+
+
+def _split(records: torch.Tensor, W: int, T: int, L: int):
+    rec = records.reshape(49, W, T, L)
+    return rec[:24], rec[24:48], rec[48] != 0
+
+
+def _stack_prefix(steps, W: int, T: int, L: int) -> torch.Tensor:
+    """T step results (72, W, L) -> (72, W, T*L), flat position t*L + l."""
+    return torch.stack(steps, dim=2).reshape(72, W, T * L)
+
+
+def scan_records_ref(records: torch.Tensor, W: int, T: int, L: int):
+    """Plain PyTorch version of `scan_records`."""
+    _check_records(records, W, T, L)
+    x, y, infv = _split(records, W, T, L)
+    acc = og.jinf((W, L), device=records.device)
+    steps = []
+    for t in range(T):
+        acc = og._jmadd_formulas(acc, og.APoints(x[:, :, t], y[:, :, t], infv[:, t]))
+        steps.append(torch.cat([acc.x, acc.y, acc.z], dim=0))
+    return _stack_prefix(steps, W, T, L), steps[-1]
+
+
+def scan_records(records: torch.Tensor, W: int, T: int, L: int):
+    """Per-lane streaming scan with the complete mixed add.
+
+    records (49, W*T*L) int32 [x limbs 0-23, y 24-47, inf 48]. Returns
+    (prefix (72, W, T*L), lane_totals (72, W, L)); prefix[.., w, t*L + l] is
+    the inclusive within-lane prefix of sorted ranks [l*T, l*T + t].
+
+    The CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    if not records.is_cuda:
+        return scan_records_ref(records, W, T, L)
+    cuda_g1.check_tensor("scan_records records", records, (49, W * T * L))
+    dev = records.device
+    prefix = torch.empty((72, W, T * L), dtype=torch.int32, device=dev)
+    totals = torch.empty((72, W, L), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = cuda_g1.lib().curdle_scan_full(
+            records.data_ptr(), prefix.data_ptr(), totals.data_ptr(), W, T, L,
+            cuda_g1.stream_ptr(),
+        )
+    cuda_g1.check_launch("scan_full", rc)
+    cuda_g1.launch_counts["scan_full"] += 1
+    return prefix, totals
+
+
+def scan_records_sel_ref(
+    records: torch.Tensor, sel: torch.Tensor, W: int, T: int, L: int, S: int
+):
+    """Plain PyTorch version of `scan_records_sel`: the flagged no-doubling
+    scan, then the selection read off the full prefix."""
+    _check_records(records, W, T, L)
+    x, y, infv = _split(records, W, T, L)
+    acc = og.jinf((W, L), device=records.device)
+    flag = torch.zeros((W, L), dtype=torch.bool, device=records.device)
+    steps = []
+    for t in range(T):
+        acc, dbl = og._jmadd_formulas_flagged(
+            acc, og.APoints(x[:, :, t], y[:, :, t], infv[:, t])
+        )
+        flag |= dbl
+        steps.append(torch.cat([acc.x, acc.y, acc.z], dim=0))
+    pref = _stack_prefix(steps, W, T, L)
+    lane = sel.reshape(W, T, S).to(torch.int64)
+    hit = (lane >= 0) & (lane < L)
+    pos = torch.arange(T, device=records.device).reshape(1, T, 1) * L + lane
+    pos = torch.where(hit, pos, torch.zeros_like(pos)).reshape(W, T * S)
+    bs = torch.take_along_dim(pref, pos.unsqueeze(0).expand(72, -1, -1), dim=-1)
+    bs = torch.where(hit.reshape(1, W, T * S), bs, torch.zeros_like(bs))
+    return bs, steps[-1], flag.any(dim=-1).to(torch.int32)
+
+
+def scan_records_sel(
+    records: torch.Tensor, sel: torch.Tensor, W: int, T: int, L: int, S: int
+):
+    """Streaming scan emitting only host-selected boundary prefixes.
+
+    records (49, W*T*L) int32 as in scan_records; sel (W*T, S) int32 lane ids
+    (outside [0, L), e.g. -1 = empty slot, emits the zero triple = identity).
+    Returns (bsel (72, W, T*S) selected prefixes, lane_totals (72, W, L),
+    dbl_flags (W,) int32 — nonzero where the no-doubling mixed add hit the
+    p == q case and the window result is INVALID; the caller must redo on
+    the doubling-safe path).
+
+    The CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    if tuple(sel.shape) != (W * T, S):
+        raise ValueError(f"sel: expected shape {(W * T, S)}, got {tuple(sel.shape)}")
+    if not records.is_cuda:
+        return scan_records_sel_ref(records, sel, W, T, L, S)
+    cuda_g1.check_tensor("scan_records_sel records", records, (49, W * T * L))
+    cuda_g1.check_tensor("scan_records_sel sel", sel, (W * T, S))
+    dev = records.device
+    bsel = torch.empty((72, W, T * S), dtype=torch.int32, device=dev)
+    totals = torch.empty((72, W, L), dtype=torch.int32, device=dev)
+    flags = torch.zeros((W,), dtype=torch.int32, device=dev)  # the kernel ORs into it
+    with torch.cuda.device(dev):
+        rc = cuda_g1.lib().curdle_scan_sel(
+            records.data_ptr(), sel.data_ptr(), bsel.data_ptr(), totals.data_ptr(),
+            flags.data_ptr(), W, T, L, S, cuda_g1.stream_ptr(),
+        )
+    cuda_g1.check_launch("scan_sel", rc)
+    cuda_g1.launch_counts["scan_sel"] += 1
+    return bsel, totals, flags

@@ -8,6 +8,24 @@ passes device="cpu".
 """
 from curdleproofs_tpu_torch.curve import G1
 from curdleproofs_tpu_torch.fields import Fr
-from curdleproofs_tpu_torch.ops.msm import msm
+from curdleproofs_tpu_torch.ops.msm import msm, msm_ladder, msm_ladder_segmented
+from curdleproofs_tpu_torch.ops.vector import (
+    add_points,
+    fold_points,
+    fold_points_multi,
+    scale_points,
+    scale_points_common,
+)
 
-__all__ = ["Fr", "G1", "msm"]
+__all__ = [
+    "Fr",
+    "G1",
+    "add_points",
+    "fold_points",
+    "fold_points_multi",
+    "msm",
+    "msm_ladder",
+    "msm_ladder_segmented",
+    "scale_points",
+    "scale_points_common",
+]

@@ -133,6 +133,9 @@ __device__ __forceinline__ Fq fq_sub(const Fq& a, const Fq& b) {
   return r;
 }
 
+// -a mod p. Results are canonical, so -0 is 0 and not p.
+__device__ __forceinline__ Fq fq_neg(const Fq& a) { return fq_sub(fq_zero(), a); }
+
 // Montgomery product a * b * 2^-384 mod p (CIOS, one word of b at a time).
 // With a, b < p < 2^381 the running value stays below 2p, so 13 words hold
 // every intermediate.

@@ -22,6 +22,15 @@ __device__ __forceinline__ Jac jac_zero() {
   return r;
 }
 
+// Affine -> Jacobian: z = 1 in Montgomery form, 0 where the point is infinity.
+__device__ __forceinline__ Jac jac_lift(const Fq& x, const Fq& y, bool inf) {
+  Jac r;
+  r.x = x;
+  r.y = y;
+  r.z = inf ? fq_zero() : fq_one();
+  return r;
+}
+
 // Jacobian doubling; infinity passes through via z = 0.
 __device__ __forceinline__ Jac jac_dbl(const Jac& p) {
   const Fq a = fq_sqr(p.x);
@@ -39,7 +48,11 @@ __device__ __forceinline__ Jac jac_dbl(const Jac& p) {
   return r;
 }
 
-// Complete Jacobian + Jacobian addition.
+// Jacobian + Jacobian addition. COMPLETE resolves the p == q case by
+// doubling; without it that case yields z3 == 0, which is only sound where
+// the caller knows it cannot occur (the table adds of the windowed ladders).
+// Cancellation p == -q and both infinity cases are exact either way.
+template <bool COMPLETE = true>
 __device__ __forceinline__ Jac jac_add(const Jac& p, const Jac& q) {
   const bool pinf = fq_is_zero(p.z);
   const bool qinf = fq_is_zero(q.z);
@@ -59,7 +72,7 @@ __device__ __forceinline__ Jac jac_add(const Jac& p, const Jac& q) {
   res.y = fq_sub(fq_mul(r, fq_sub(v, res.x)), fq_dbl(fq_mul(s1, j)));
   const Fq zz = fq_sub(fq_sub(fq_sqr(fq_add(p.z, q.z)), z1z1), z2z2);
   res.z = fq_mul(zz, h);  // h == 0 -> z3 == 0: P + (-P) is infinity for free
-  if (fq_is_zero(h) && fq_is_zero(r) && !pinf && !qinf) res = jac_dbl(p);
+  if (COMPLETE && fq_is_zero(h) && fq_is_zero(r) && !pinf && !qinf) res = jac_dbl(p);
   if (qinf) res = p;
   if (pinf) res = q;
   return res;
@@ -89,11 +102,7 @@ __device__ __forceinline__ bool jac_madd(Jac& out, const Jac& p, const Fq& qx, c
   const bool dbl = fq_is_zero(h) && fq_is_zero(r) && !pinf && !qinf;
   if (COMPLETE && dbl) res = jac_dbl(p);
   if (qinf) res = p;
-  if (pinf) {  // lift(q): z = 1 in Montgomery form, 0 where q is infinity
-    res.x = qx;
-    res.y = qy;
-    res.z = qinf ? fq_zero() : fq_one();
-  }
+  if (pinf) res = jac_lift(qx, qy, qinf);
   out = res;
   return dbl;
 }

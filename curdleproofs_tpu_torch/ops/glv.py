@@ -42,6 +42,26 @@ BETA = 0x1A0111EA397FE699EC02408663D4DE85AA0D857D89759AD4897D29650FB85F9B409427E
 GLV_LIMBS = 9  # 144 bits > 129-bit bound on |k1|, k2
 GLV_WINDOWS = 43  # radix-8 windows covering 129 bits (43*3 = 129)
 
+# Scalars at the corners of the decomposition and of the ladders' windows
+# (zero, the ends of the range, around lambda, the clamped corner, a lone top
+# bit); the tests and the GPU smoke run put them on lanes of their own.
+EDGE_SCALARS = (
+    0,
+    1,
+    2,
+    7,
+    FR_MOD - 1,
+    FR_MOD - 2,
+    FR_MOD - 7,
+    LAMBDA,
+    LAMBDA - 1,
+    LAMBDA + 1,
+    Z_ABS**2,
+    (1 << 254) - 1,
+    1 << 128,
+    14 * LAMBDA,
+)
+
 _L = 16  # input Fr limbs
 _LB = 16  # limb bits
 _MASK = (1 << _LB) - 1

@@ -151,3 +151,24 @@ def _mont_finish(t: torch.Tensor, L: int, modv: torch.Tensor) -> torch.Tensor:
 
 def mont_sqr(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return mont_mul(spec, a, a)
+
+
+def mont_pow_const(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e (Montgomery in/out) for a static exponent, MSB-first square and
+    multiply. The exponent is static, so the multiply is simply skipped at a
+    zero bit (the JAX package's scan computes and discards it): the same
+    values at every step."""
+    if e == 0:
+        return _col(spec.one_mont, a).expand_as(a).clone()
+    acc = a  # the first bit is always 1
+    for i in range(e.bit_length() - 2, -1, -1):
+        acc = mont_sqr(spec, acc)
+        if (e >> i) & 1:
+            acc = mont_mul(spec, acc, a)
+    return acc
+
+
+def mont_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Batched modular inverse via Fermat (a^(p-2)); 0 -> 0. Montgomery
+    in/out."""
+    return mont_pow_const(spec, a, spec.modulus - 2)

@@ -1,8 +1,13 @@
-"""Multi-scalar multiplication: the GLV-split streaming Pippenger.
+"""Multi-scalar multiplication: the GLV-split streaming Pippenger for large
+n and the GLV ladder for everything below it.
 
-Counterpart of the JAX package's `ops.msm` as far as its large-n path goes:
-`msm()` -> `msm_pippenger_stream` -> `_msm_stream_impl` -> a per-chunk device
-body -> `_combine_windows_host`.
+Counterpart of the JAX package's `ops.msm`: `msm()` -> `msm_pippenger_stream`
+-> `_msm_stream_impl` -> a per-chunk device body -> `_combine_windows_host`
+from STREAM_MIN lanes up, and `msm()` -> `msm_ladder` (one `ladder_glv`
+launch, then a tree reduce over the point kernel) below it;
+`msm_ladder_segmented` runs K independent same-width MSMs as one launch.
+
+The streaming Pippenger:
 
 For each c-bit window w with digits d_i and buckets t in [0, 2^c):
     S_w = sum_i d_i * P_i = sum_t t * bucket_t
@@ -27,9 +32,9 @@ flag or a selection-slot overflow sends the work to the complete,
 full-prefix scan (`_stream_window_partials`). The result is always exact.
 
 This package gathers the sorted order with the direct gather kernel; the JAX
-package's 3-stage routed gather (ops.route) and its native host prep belong
-to a later slice of the port, as do `method="ladder"` and sizes between the
-host threshold and STREAM_MIN.
+package's 3-stage routed gather (ops.route), its native host prep and its
+sort-based `method="pippenger"` / `"hostsort"` engines are not in this
+package yet.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ import torch
 
 from curdleproofs_tpu_torch.curve import G1, msm_host
 from curdleproofs_tpu_torch.fields import Fr
+from curdleproofs_tpu_torch.ops import cuda_g1
 from curdleproofs_tpu_torch.ops import g1 as og
 from curdleproofs_tpu_torch.ops import gather as ogather
 from curdleproofs_tpu_torch.ops import glv as oglv
@@ -451,6 +457,65 @@ def _msm_stream_impl(
     return out
 
 
+def ladder_point_ops(n: int, w: Optional[int] = None) -> int:
+    """Group operations executed per lane by the GLV dual-table ladder MSM
+    (doublings + window adds + table builds + endomorphism maps), plus the
+    tree reduce."""
+    if (cuda_g1.GLV_W if w is None else w) == 4:
+        return (132 + 66 + 14 + 15) * n + n
+    return (129 + 86 + 6 + 7) * n + n
+
+
+def _ladder_msm(points: APoints, scalars_np: np.ndarray, K: int, span: str, w: Optional[int]) -> List[G1]:
+    """The body the two ladder MSMs share: GLV split on the host (numpy), one
+    upload of both half-scalars and the sign row, one ladder launch over all
+    lanes, a tree reduce of each of the K segments, one readback."""
+    n = points.x.shape[-1]
+    with timed(span, items=n, point_ops=ladder_point_ops(n, w)):
+        with timed(f"{span}.decompose"):
+            s1, neg1, s2 = oglv.decompose(np.asarray(scalars_np).astype(np.uint64))
+            halves = np.concatenate([s1, s2, neg1[None].astype(np.uint32)], axis=0)  # (19, n)
+        with timed(f"{span}.device"):
+            up = from_reference(halves, points.x.device)
+            acc = og.scalar_mul_glv(points, up[:9], up[18], up[9:18], w=w)
+            res = oscan.tree_reduce_hybrid(JPoints(*(a.reshape(24, K, n // K) for a in acc)))
+            packed = torch.cat([res.x, res.y, res.z], dim=0)  # (72, K): one transfer home
+            _sync(points.x.device)
+        with timed(f"{span}.readback"):
+            arr = to_reference(packed)
+            return og.jpoints_to_host(JPoints(arr[:24], arr[24:48], arr[48:]))
+
+
+def msm_ladder(points: APoints, scalars: np.ndarray, w: Optional[int] = None) -> G1:
+    """Ladder MSM: GLV-split scalars (ops.glv, host numpy), one fused ladder
+    over all lanes, one tree reduce. points (24, n) affine tensors (the
+    device they lie on is the device it runs on), scalars (16, n) canonical
+    limbs as host numpy -> host G1. No sort and no gather: about 229 group
+    operations per lane against the streaming Pippenger's ~25, in exchange
+    for no host prep beyond the split. w is the window width (default
+    `cuda_g1.GLV_W`)."""
+    return _ladder_msm(points, scalars, 1, "msm.ladder", w)[0]
+
+
+def msm_naive(points: APoints, scalars: np.ndarray) -> G1:
+    """The JAX package's alias of `msm_ladder` (the cross-check path)."""
+    return msm_ladder(points, scalars)
+
+
+def msm_ladder_segmented(
+    points: APoints, scalars_np: np.ndarray, K: int, w: Optional[int] = None
+) -> List[G1]:
+    """K independent same-width MSMs as ONE ladder launch.
+
+    points (24, K*m) affine, scalars (16, K*m) host numpy canonical limbs;
+    segment k owns lanes [k*m, (k+1)*m). Returns the K segment results. This
+    is the engine behind lockstep batch proving: 64 concurrent provers make
+    every protocol MSM a 64 x 128-lane batch."""
+    if points.x.shape[-1] % K:
+        raise ValueError("segmented msm: width not divisible by K")
+    return _ladder_msm(points, scalars_np, K, "msm.ladder_seg", w)
+
+
 def msm(
     bases: Sequence[G1],
     scalars: Sequence[Fr],
@@ -460,7 +525,11 @@ def msm(
 ) -> G1:
     """Host-facing MSM over host points/scalars. Runs on the GPU unless the
     caller passes device="cpu" (the plain PyTorch versions); with no CUDA
-    device and no explicit "cpu" it raises."""
+    device and no explicit "cpu" it raises.
+
+    method "auto": exact host arithmetic up to HOST_THRESHOLD points, the GLV
+    ladder below STREAM_MIN, the streaming Pippenger from there; "ladder" and
+    "stream" force one engine at any size."""
     dev = resolve_device(device)
     if len(bases) != len(scalars):
         raise ValueError("msm length mismatch")
@@ -472,18 +541,17 @@ def msm(
             # host double-and-add: ~1.5 * 255 point ops per element
             with timed("msm.host", items=n, point_ops=383 * n):
                 return msm_host(list(bases), list(scalars))
-        if n < STREAM_MIN:
-            raise NotImplementedError(
-                f"msm: sizes between {HOST_THRESHOLD + 1} and {STREAM_MIN - 1} belong to the "
-                "GLV ladder, which this package does not have yet (the ladder slice of the "
-                "port); pass method='stream' to run the streaming Pippenger at this size"
-            )
-        method = "stream"
-    if method != "stream":
+        method = "stream" if n >= STREAM_MIN else "ladder"
+    if method not in ("stream", "ladder"):
         raise NotImplementedError(
-            f"msm: method {method!r} is not in this package yet (the ladder and vector-ops "
-            "slices of the port); only 'auto' and 'stream' are"
+            f"msm: method {method!r} is not in this package yet; 'auto', 'ladder' and "
+            "'stream' are (the sort-based 'pippenger' and 'hostsort' engines are not)"
         )
-    pts = og.pack_points(list(bases), dev)
-    scs_np = np.asarray(ints_to_limbs([s.v for s in scalars], 16), dtype=np.uint32)
+    with timed(f"msm.{method}.pack"):
+        pts = og.pack_points(list(bases), dev)
+        scs_np = np.asarray(ints_to_limbs([s.v for s in scalars], 16), dtype=np.uint32)
+    if method == "ladder":
+        # no pad to a multiple of 128 as in the JAX package (a compiled-shape
+        # and tile rule there): the kernel masks its ragged last block
+        return msm_ladder(pts, scs_np)
     return msm_pippenger_stream(pts, scs_np, c=c)

@@ -15,7 +15,9 @@ from curdleproofs_tpu_torch.fields import FR_MOD, Fr
 from curdleproofs_tpu_torch.ops import cuda_g1
 from curdleproofs_tpu_torch.ops import g1 as og
 from curdleproofs_tpu_torch.ops import gather as ogather
+from curdleproofs_tpu_torch.ops import glv as oglv
 from curdleproofs_tpu_torch.ops import stream_scan as ostream
+from curdleproofs_tpu_torch.ops.fieldspec import from_reference, ints_to_limbs
 
 pytestmark = pytest.mark.gpu
 
@@ -77,3 +79,47 @@ def test_scans(points, card):
     got = ostream.scan_records_sel(rec, sel, W, T, L, S)
     assert _equal(got, ostream.scan_records_sel_ref(rec, sel, W, T, L, S))
     assert got[2].tolist()[0] == 1
+
+
+@pytest.fixture(scope="module")
+def ladder_lanes(card):
+    """64 lanes: the edge scalars, an identity base, two equal bases, the
+    rest random (about half of them with a negative k1)."""
+    rng = random.Random(9)
+    n = 64
+    pts = [G1() * Fr(rng.randrange(1, FR_MOD)) for _ in range(n)]
+    ks = list(oglv.EDGE_SCALARS) + [rng.randrange(FR_MOD) for _ in range(n - len(oglv.EDGE_SCALARS))]
+    pts[20] = G1.identity()
+    pts[22] = pts[21]
+    sc = np.asarray(ints_to_limbs(ks, 16), dtype=np.uint32)
+    want = [p * Fr(k) for p, k in zip(pts, ks)]
+    return og.pack_points(pts, card), sc, want
+
+
+@pytest.mark.parametrize("w", [3, 4])
+def test_ladder_glv(ladder_lanes, card, w):
+    ap, sc, want = ladder_lanes
+    s1, neg1, s2 = oglv.decompose(sc.astype(np.uint64))
+    assert neg1.any() and not neg1.all()
+    args = (ap, from_reference(s1, card), from_reference(neg1, card), from_reference(s2, card))
+    name = f"ladder_glv_w{w}"
+    before = cuda_g1.launch_counts[name]
+    got = og.scalar_mul_glv(*args, w=w)
+    assert cuda_g1.launch_counts[name] == before + 1
+    assert _equal(got, og._scalar_mul_glv_plain(*args, w=w))
+    assert og.jpoints_to_host(got) == want
+
+
+def test_ladder_w3_and_w1(ladder_lanes, card):
+    ap, sc, want = ladder_lanes
+    sc_d = from_reference(sc, card)
+    before = dict(cuda_g1.launch_counts)
+    got = og.scalar_mul(ap, sc_d)
+    assert cuda_g1.launch_counts["ladder_w3"] == before["ladder_w3"] + 1
+    assert cuda_g1.launch_counts["point_op"] == before["point_op"] + 6
+    assert _equal(got, og._scalar_mul_w3_plain(ap, sc_d))
+    assert og.jpoints_to_host(got) == want
+    got = og.scalar_mul_w1(ap, sc_d)
+    assert cuda_g1.launch_counts["ladder_w1"] == before["ladder_w1"] + 1
+    assert _equal(got, og._scalar_mul_plain(ap, sc_d, acc0=og._jzero(ap.x)))
+    assert og.jpoints_to_host(got) == want

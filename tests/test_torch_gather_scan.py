@@ -21,6 +21,10 @@ from curdleproofs_tpu_torch.ops import scan as tscan
 from curdleproofs_tpu_torch.ops import stream_scan as tstream
 from curdleproofs_tpu_torch.ops.fieldspec import from_reference, to_reference
 
+# The lanes here are few: intra-op threads add nothing but spin-waiting, which
+# slows every worker of a parallel test run many times over.
+torch.set_num_threads(1)
+
 W, T, L, S = 2, 8, 32, 16
 
 

@@ -28,6 +28,9 @@ print("BAD=" + ",".join(bad))
         "curdleproofs_tpu_torch.ops.stream_scan",
         "curdleproofs_tpu_torch.ops.gather",
         "curdleproofs_tpu_torch.ops.scan",
+        "curdleproofs_tpu_torch.ops.g1",
+        "curdleproofs_tpu_torch.ops.vector",
+        "curdleproofs_tpu_torch.ops.modarith",
         "chip_smoke",
     ],
 )
@@ -55,6 +58,7 @@ def test_sources_name_no_jax_import():
 
 
 def test_entry_points_refuse_to_run_without_a_card():
+    import curdleproofs_tpu_torch as pkg
     from curdleproofs_tpu_torch import G1, Fr, msm
     from curdleproofs_tpu_torch.ops import g1 as og
     from curdleproofs_tpu_torch.ops.fieldspec import from_reference
@@ -69,6 +73,12 @@ def test_entry_points_refuse_to_run_without_a_card():
         lambda: msm(pts, scs),
         lambda: msm([], []),
         lambda: msm(pts, scs, device="cuda"),
+        lambda: msm(pts, scs, method="ladder"),
+        lambda: pkg.scale_points(pts, scs),
+        lambda: pkg.scale_points_common(pts, scs[0]),
+        lambda: pkg.fold_points(pts, pts, scs[0]),
+        lambda: pkg.fold_points_multi(pts, pts, scs),
+        lambda: pkg.add_points(pts, pts),
         lambda: og.pack_points(pts),
         lambda: og.pack_scalars(scs),
         lambda: from_reference(np.zeros((24, 1), np.uint32)),
@@ -101,4 +111,11 @@ def test_wrappers_have_no_cpu_path_for_cuda_requests():
         cuda_g1.point_op("jdbl", [x, x, x])
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_g1.check_tensor("t", x, (24, 4))
+    from curdleproofs_tpu_torch.ops.g1 import APoints
+
+    pts = APoints(x, x, torch.zeros(4, dtype=torch.bool))
+    sc = torch.zeros((16, 4), dtype=torch.int32)
+    for call in (lambda: cuda_g1.scalar_mul(pts, sc), lambda: cuda_g1.scalar_mul_w1(pts, sc)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
     assert all(v == 0 for v in cuda_g1.launch_counts.values())

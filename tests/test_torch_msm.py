@@ -8,6 +8,7 @@ import random
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from curdleproofs_tpu.curve import G1 as JG1
 from curdleproofs_tpu.ops import g1 as jog
@@ -20,6 +21,11 @@ from curdleproofs_tpu_torch.ops import g1 as tog
 from curdleproofs_tpu_torch.ops import glv as tglv
 from curdleproofs_tpu_torch.ops import msm as tmsm
 from curdleproofs_tpu_torch.ops.fieldspec import from_reference, ints_to_limbs, to_reference
+
+# The lanes here are few: intra-op threads add nothing but spin-waiting, which
+# slows every worker of a parallel test run many times over.
+torch.set_num_threads(1)
+
 
 @functools.lru_cache(maxsize=None)
 def _pool():

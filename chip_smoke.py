@@ -2,27 +2,38 @@
 """GPU smoke run of curdleproofs_tpu_torch: build the CUDA kernels from the
 sources in this checkout, hold each against its plain PyTorch version, and
 drive the package end to end through its entry points: `msm()` on the
-streaming Pippenger and on the GLV ladder, the segmented ladder MSM and the
-vector ops.
+streaming Pippenger (direct and routed gather), on the GLV ladder and on the
+sort-based engines, the segmented ladder MSM and the vector ops.
 
     python3 chip_smoke.py            # needs one CUDA device; exits 0 on success
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
-  device     card name and power limit (nvidia-smi), kernel build time
-  kernels    the eight kernels vs their plain versions at small shapes with
+  device     card name and power limit (nvidia-smi), kernel build time, the
+             native host library's build time and OpenMP threads
+  kernels    the nine kernels vs their plain versions at small shapes with
              edge lanes (identity, P+P, P+(-P), a forced p == q collision in
              scan_sel, empty and repeated selection slots, out-of-range
-             gather indices; for the four ladders 256 lanes with the edge
+             gather indices; rowwise_gather at one group with a ragged M and
+             at the three stage shapes of the routed gather, per chunk of two
+             windows and with all windows in one launch, routed_gather
+             against packed[:, src]; for the four ladders 256 lanes with the edge
              scalars 0, 1, r-1, lambda, lambda+-1, 2^128, 14*lambda, ..., an
              identity base, two equal bases, negative k1, all three
              coordinates and the host's P*s) — integer equality
+  host_native  msm_prep_batch at n = 2^16, c = 13, L = 512 array-equal to the
+             numpy chain, and both times
   msm_2e16   msm() at n = 2^16: bases P_i = (a + i*d + i^2*e)*G, uniform scalars;
              result == (sum s_i*dlog(P_i) mod r)*G, and first-128-scalars-only
              == msm_host; wall times and the host-prep / device / combine split
   msm_redo   all-equal bases and scalars force the doubling flag; the result
              equals the oracle and the complete scan launched
   msm_split  n = 3*2^15 + 5: two STREAM_SPLIT slices, the second padded
+  msm_routed msm_pippenger_stream(routed=True) at n = 2^16 (r = 512, c = 256,
+             W = 10, chunks of two windows): == the discrete-log oracle,
+             first 128 == msm_host, wall times and spans (route solve, native
+             prep, device, combine), beside the direct gather in turns
+  msm_sort   msm(method="pippenger") and msm(method="hostsort") at n = 4096
   msm_ladder msm() at n = 2^14 - 1 through method="auto" (the widest MSM of
              the ladder branch): == the discrete-log oracle, first 128 ==
              msm_host, wall times and the decompose / pack / device /
@@ -37,9 +48,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the bitwise ladder cross-checks the windowed one at n = 8192
   kernel_times  each kernel at the shapes the phases above give it vs its
              plain version (equality), timed with CUDA events, beside the
-             least time the card could take. Launch counts are those of the
-             six main-path phases above: set to 0 just before each, read just
-             after it
+             least time the card could take; rowwise_gather per stage of the
+             routed gather at the chunk shape the routed path launches,
+             beside torch.gather, and the transposes between the stages (the
+             same with all windows in one launch as an extra field). Launch counts are those of the eight main-path phases
+             above: set to 0 just before each, read just after it
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit. `--rehearse-cpu` walks the same control flow at
@@ -67,10 +80,12 @@ from curdleproofs_tpu_torch.ops import gather as ogather
 from curdleproofs_tpu_torch.ops import glv as oglv
 from curdleproofs_tpu_torch.ops import modarith as ma
 from curdleproofs_tpu_torch.ops import msm as omsm
+from curdleproofs_tpu_torch.ops import route as oroute
 from curdleproofs_tpu_torch.ops import scan as oscan
 from curdleproofs_tpu_torch.ops import stream_scan as ostream
 from curdleproofs_tpu_torch.ops import vector as ovec
 from curdleproofs_tpu_torch.ops.fieldspec import FQ_SPEC, from_reference, ints_to_limbs
+from curdleproofs_tpu_torch.utils import host_native
 from curdleproofs_tpu_torch.utils.profiling import metrics
 
 # Least-time model of the card (NVIDIA H100 SXM data sheet): HBM3 at
@@ -86,6 +101,7 @@ REPS = 3  # timed msm() calls after the warm-up
 MONT_PER_OP = {"dbl": 7, "madd": 11, "jadd": 16}  # Montgomery products per point operation
 KERNELS_CU = "curdleproofs_tpu_torch/csrc/kernels.cu"
 LADDERS_CU = "curdleproofs_tpu_torch/csrc/ladders.cu"
+GATHER_CU = "curdleproofs_tpu_torch/csrc/gather.cu"
 
 
 PHASE_SECONDS = {}
@@ -255,7 +271,7 @@ def ladder_edge_checks(bases, dev, rng, m):
     return out
 
 
-def phase_kernels(bases, dev, rng, m_ladder):
+def phase_kernels(bases, dev, rng, m_ladder, route_shape):
     out = {"phase": "kernels"}
     m = min(1024, len(bases))
     pts = list(bases[:m])
@@ -315,6 +331,46 @@ def phase_kernels(bases, dev, rng, m_ladder):
         "library_ms": wall_ms(lambda: torch.gather(table, 2, safe), dev)[1],
     }
 
+    # rowwise_gather: one group with a ragged M and indices from -3 to K + 2,
+    # then the three stage shapes of the routed gather as the routed path
+    # launches them (r, c of the main width, a chunk of ROUTE_WINDOW_BATCH
+    # windows) and with all W windows in one launch, random 16-bit tables
+    rr, rc, Wr = route_shape
+    Wc = min(Wr, omsm.ROUTE_WINDOW_BATCH)
+    row_shapes = {
+        "edge": (1, 49, 300, 1000),
+        "stage1": (rr, 49, rc, Wc * rc),
+        "stage2": (Wc * rc, 49, rr, rr),
+        "stage3": (Wc * rr, 49, rc, rc),
+        "stage1_all_windows": (rr, 49, rc, Wr * rc),
+        "stage2_all_windows": (Wr * rc, 49, rr, rr),
+        "stage3_all_windows": (Wr * rr, 49, rc, rc),
+    }
+    rowwise = {}
+    for name, (G, R, K, M) in row_shapes.items():
+        table = torch.from_numpy(rng.integers(0, 1 << 16, (G, R, K), dtype=np.int32)).to(dev)
+        lo, hi = (-3, K + 3) if name == "edge" else (0, K)
+        idx = torch.from_numpy(rng.integers(lo, hi, (G, M), dtype=np.int32)).to(dev)
+        before = cuda_g1.launch_counts["rowwise_gather"]
+        got = ogather.rowwise_gather(table, idx)
+        launched = cuda_g1.launch_counts["rowwise_gather"] - before
+        rowwise[name] = {
+            "shape": [G, R, K, M],
+            "max_abs_err": max_abs_err(got, ogather.rowwise_gather_ref(table, idx)),
+            "launched": launched,
+        }
+        del table, idx, got
+    # routed_gather against packed[:, src], tables from the native solver
+    n_r = rr * rc
+    packed_r = torch.from_numpy(rng.integers(0, 1 << 16, (49, n_r), dtype=np.int32)).to(dev)
+    src = np.stack([rng.permutation(n_r) for _ in range(2)]).astype(np.int32)
+    tables = [from_reference(t, dev) for t in oroute.decompose(rr, rc, src)]
+    got = ogather.routed_gather(packed_r, *tables)
+    want = torch.stack([packed_r[:, torch.from_numpy(src[w]).to(dev).long()] for w in range(2)], dim=1)
+    rowwise["routed_gather"] = {"r": rr, "c": rc, "W": 2, "max_abs_err": max_abs_err(got, want)}
+    out["rowwise_gather"] = rowwise
+    del packed_r, tables, got, want
+
     # scans: W=2, T=16, L=64, S=32 with infinity records, a forced p == q
     # collision (lane 0 of window 0 sees the same point twice), empty,
     # repeated and out-of-range selection slots
@@ -365,6 +421,9 @@ def phase_kernels(bases, dev, rng, m_ladder):
         bad.append("ladder lanes lack a negative or a positive k1")
     if not out["scan_sel"]["collision_flagged"]:
         bad.append("scan_sel flags")
+    bad += [f"rowwise_gather[{k}]" for k, v in rowwise.items() if v["max_abs_err"] != 0]
+    if dev.type == "cuda" and any(v.get("launched", 1) != 1 for v in rowwise.values()):
+        fail("rowwise_gather: the wrapper did not launch its kernel once per call")
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
 
@@ -380,6 +439,63 @@ def _counts():
 
 def _delta(before):
     return {k: cuda_g1.launch_counts[k] - before[k] for k in before}
+
+
+def _span_s(rep, name, reps):
+    """Mean seconds per repetition of one span (0 where it never ran)."""
+    return rep[name]["total_time_s"] / reps if name in rep else 0.0
+
+
+def _prep_ran(rep):
+    """Which host prep the stream MSMs of a metrics report ran."""
+    return {k: rep[f"msm.stream.host_prep.{k}"]["calls"] for k in ("native", "numpy")
+            if f"msm.stream.host_prep.{k}" in rep}
+
+
+def phase_host_native(scalars, dev):
+    """The native streaming-MSM host prep against the numpy chain on the
+    scalars of the main path: every array equal, both times."""
+    n = len(scalars)
+    c = omsm.pick_window(n)
+    L = ostream.pick_lanes(2 * n)
+    T = 2 * n // L
+    sc = np.asarray(ints_to_limbs([s.v for s in scalars], 16), dtype=np.uint32)
+    host_native.msm_prep_batch(sc[:, :256], c, min(L, 512), omsm.SEL_SLOT_OPTIONS)  # warm-up
+    t0 = time.perf_counter()
+    neg, ocm, bidx, lidx, sel, bpos, S = host_native.msm_prep_batch(sc, c, L, omsm.SEL_SLOT_OPTIONS)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s1, neg_r, s2 = oglv.decompose_numpy(sc.astype(np.uint64))
+    t_glv = time.perf_counter() - t0
+    digits = omsm.host_digits(np.concatenate([s1, s2], axis=1).astype(np.uint32), c, bits=130)
+    ocm_r, bidx_r, lidx_r, e = omsm.stream_host_prep(digits, c, L)
+    for S_r in omsm.SEL_SLOT_OPTIONS:
+        sel_r, bpos_r = omsm._build_sel(e, T, S_r)
+        if sel_r is not None:
+            break
+    else:
+        S_r = 0
+    numpy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g1_, gn, g2 = oglv.decompose(sc.astype(np.uint64))
+    glv_native_s = time.perf_counter() - t0
+    equal = {
+        "neg1": np.array_equal(neg, neg_r), "order_cm": np.array_equal(ocm, ocm_r),
+        "bidx": np.array_equal(bidx, bidx_r), "lidx": np.array_equal(lidx, lidx_r),
+        "S": S == S_r, "sel": S == 0 or np.array_equal(sel, sel_r),
+        "bpos": S == 0 or np.array_equal(bpos, bpos_r),
+        "glv_decompose": all(np.array_equal(a, b) for a, b in zip((g1_, gn, g2), (s1, neg_r, s2))),
+    }
+    emit(
+        {
+            "phase": "host_native", "n": n, "c": c, "L": L, "S": S,
+            "build_s": host_native.build_seconds, "openmp_threads": host_native.openmp_threads(),
+            "equal": equal, "native_prep_s": native_s, "numpy_chain_s": numpy_s,
+            "glv_decompose_native_s": glv_native_s, "glv_decompose_numpy_s": t_glv,
+        }
+    )
+    if not all(equal.values()):
+        fail(f"the native host prep disagrees with the numpy chain: {equal}")
 
 
 def phase_msm_main(bases, scalars, coef, dev):
@@ -411,6 +527,8 @@ def phase_msm_main(bases, scalars, coef, dev):
 
     split = {k: mean_s(f"msm.stream.{k}") for k in ("host_prep", "device", "combine")}
     split["pack_points_and_rest"] = float(np.mean(walls)) - sum(split.values())
+    split["pack_points"] = mean_s("msm.stream.pack")
+    split["host_prep_native"] = _span_s(rep, "msm.stream.host_prep.native", REPS)
     n2 = 2 * n
     L = ostream.pick_lanes(n2)
     emit(
@@ -427,12 +545,15 @@ def phase_msm_main(bases, scalars, coef, dev):
             "fast_path": launches_one["scan_full"] == 0,
             "wall_s": {"median": float(np.median(walls)), "min": min(walls), "max": max(walls)},
             "split_s": split,
+            "host_prep_ran": _prep_ran(rep),
             "reps": REPS,
             "c12_W11": {"dlog_check": c12_ok, "wall_s": c12_wall},
         }
     )
     if not (dlog_ok and sub_ok and c12_ok):
         fail("msm_2e16 result is wrong")
+    if _prep_ran(rep) != {"native": REPS}:
+        fail(f"msm_2e16 did not run the native host prep: {_prep_ran(rep)}")
     for k in ("scan_sel", "gather_u32", "point_op"):
         if dev.type == "cuda" and launches_one[k] == 0:
             fail(f"msm_2e16 never launched {k}")
@@ -457,10 +578,11 @@ def phase_msm_redo(n, dev):
 def phase_msm_split(bases, scalars, coef, dev):
     cuda_g1.reset_launch_counts()
     before = _counts()
+    want = dlog_expect(coef, scalars)
     t0 = time.perf_counter()
-    got = msm(bases, scalars, device=dev)
+    ok = msm(bases, scalars, device=dev) == want
     wall = time.perf_counter() - t0
-    ok = got == dlog_expect(coef, scalars)
+    launches = _delta(before)
     emit(
         {
             "phase": "msm_split",
@@ -468,11 +590,115 @@ def phase_msm_split(bases, scalars, coef, dev):
             "slices": -(-len(bases) // omsm.STREAM_SPLIT),
             "dlog_check": ok,
             "wall_s": wall,
-            "launches": _delta(before),
+            "launches": launches,
         }
     )
     if not ok:
         fail("msm_split result is wrong")
+    return _counts()
+
+
+def phase_msm_routed(bases, scalars, coef, dev):
+    """msm_pippenger_stream(routed=True) at full width, beside the direct
+    gather on the same packed inputs, in turns."""
+    cuda_g1.reset_launch_counts()
+    n = len(bases)
+    c = omsm.pick_window(n)
+    W = -(-130 // c)
+    want = dlog_expect(coef, scalars)
+    pts = og.pack_points(list(bases), dev)
+    sc = np.asarray(ints_to_limbs([s.v for s in scalars], 16), dtype=np.uint32)
+    sub = sc.copy()
+    sub[:, 128:] = 0
+    sub_want = msm_host(list(bases[:128]), list(scalars[:128]))
+
+    def run(routed, s=sc):
+        return wall_ms(lambda: omsm.msm_pippenger_stream(pts, s, routed=routed), dev)
+
+    before = _counts()
+    ok = {True: run(True)[0] == want, False: True}  # warm-up, checked
+    launches_routed = _delta(before)
+    before = _counts()
+    ok[False] = run(False)[0] == want
+    launches_direct = _delta(before)
+    sub_ok = run(True, sub)[0] == sub_want
+    walls = {True: [], False: []}
+    spans = {True: {}, False: {}}  # mode -> span -> [seconds, calls], summed over its runs
+    for routed in (True, False, False, True, True, False)[: 2 * REPS]:
+        metrics().reset()
+        got, ms = run(routed)
+        walls[routed].append(ms / 1e3)
+        ok[routed] = ok[routed] and got == want
+        for name, v in metrics().report().items():
+            acc = spans[routed].setdefault(name, [0.0, 0])
+            acc[0] += v["total_time_s"]
+            acc[1] += v["calls"]
+    k = len(walls[True])
+
+    def per_msm(mode, name):
+        return spans[mode].get(name, [0.0, 0])[0] / len(walls[mode])
+
+    split_names = ("host_prep", "host_prep.native", "route_wait", "device", "combine")
+    solve_s, solve_calls = spans[True].get("msm.stream.route_solve", [0.0, 0])
+    rr, rc = oroute.pick_rc(2 * omsm._pow2_at_least(n, 128), omsm.ROUTE_MIN_FACTOR)
+    emit(
+        {
+            "phase": "msm_routed",
+            "n": n, "c": c, "W": W, "r": rr, "c_route": rc,
+            "window_batch": omsm.ROUTE_WINDOW_BATCH,
+            "chunks": -(-W // omsm.ROUTE_WINDOW_BATCH),
+            "dlog_check": ok[True],
+            "first128_check": sub_ok,
+            "direct_dlog_check": ok[False],
+            "launches_per_msm": launches_routed,
+            "launches_per_direct_msm": launches_direct,
+            "wall_s_packed_inputs": {"routed": _wall_stats(walls[True]), "direct": _wall_stats(walls[False])},
+            "routed_split_s": {n_: per_msm(True, f"msm.stream.{n_}") for n_ in split_names},
+            "direct_split_s": {n_: per_msm(False, f"msm.stream.{n_}") for n_ in split_names},
+            "route_solve_s_per_window": solve_s / max(solve_calls, 1),
+            "route_solve_windows_per_msm": solve_calls / k,
+            "host_prep_ran": {m: c_[1] for m in ("native", "numpy")
+                              for c_ in [spans[True].get(f"msm.stream.host_prep.{m}")] if c_},
+            "route_pool_workers": omsm._route_pool()._max_workers,
+            "reps": k,
+        }
+    )
+    if not (ok[True] and ok[False] and sub_ok):
+        fail("msm_routed result is wrong")
+    if dev.type == "cuda":
+        chunks = -(-W // omsm.ROUTE_WINDOW_BATCH)
+        if launches_routed["rowwise_gather"] != 3 * chunks:
+            fail(f"routed msm launched rowwise_gather {launches_routed['rowwise_gather']} times, not {3 * chunks}")
+        if launches_direct["rowwise_gather"] != 0:
+            fail("the direct-gather msm launched rowwise_gather")
+        if launches_routed["scan_sel"] != chunks or launches_routed["scan_full"]:
+            fail("routed msm did not take the sel scan once per chunk")
+    return _counts()
+
+
+def phase_msm_sort(bases, scalars, coef, dev):
+    """The two sort-based engines through msm()."""
+    cuda_g1.reset_launch_counts()
+    want = dlog_expect(coef, scalars)
+    out = {"phase": "msm_sort", "n": len(bases)}
+    for method in ("pippenger", "hostsort"):
+        before = _counts()
+        t0 = time.perf_counter()
+        ok = msm(bases, scalars, method=method, device=dev) == want
+        first = time.perf_counter() - t0
+        launches = {k: v for k, v in _delta(before).items() if v}
+        t0 = time.perf_counter()
+        ok = msm(bases, scalars, method=method, device=dev) == want and ok
+        out[method] = {"dlog_check": ok, "first_wall_s": first, "wall_s": time.perf_counter() - t0,
+                       "launches_per_msm": launches}
+    emit(out)
+    for method in ("pippenger", "hostsort"):
+        if not out[method]["dlog_check"]:
+            fail(f"msm(method={method!r}) result is wrong")
+        if dev.type == "cuda" and not (
+            out[method]["launches_per_msm"].get("point_op") and out[method]["launches_per_msm"].get("gather_u32")
+        ):
+            fail(f"msm(method={method!r}) did not go through point_op and gather_u32")
     return _counts()
 
 
@@ -743,6 +969,95 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, co
         nbytes=4 * (packed.numel() + flat_idx.numel() + 49 * W * n2),
         library_fn=lambda: torch.gather(tab3, 2, lib_idx),
     )
+    # rowwise_gather: the three stages of the routed gather of the same records,
+    # at the shape the routed path launches them (a chunk of ROUTE_WINDOW_BATCH
+    # windows) and, beside it, with all W windows in one launch; tables from
+    # the native route solver
+    rr, rc = oroute.pick_rc(n2, omsm.ROUTE_MIN_FACTOR)
+    t0 = time.perf_counter()
+    route_tables = tuple(from_reference(t, dev) for t in oroute.decompose(rr, rc, order_cm))
+    solve_s = time.perf_counter() - t0
+    R = 49
+    timer = cuda_ms if dev.type == "cuda" else (lambda fn, iters: wall_ms(fn, dev)[1])
+    g_direct = g.reshape(R, W, n2)  # what the direct gather made of the same records
+
+    def routed_stages(Wk):
+        """The three launches of ops.gather.routed_gather over the first Wk
+        windows, one at a time, with the layout step before each."""
+        i1, i2, i3 = (t[:Wk].contiguous() for t in route_tables)
+        layouts = {
+            "stage1": lambda: (packed.reshape(R, rr, rc).transpose(0, 1).contiguous(),
+                               i1.transpose(0, 1).reshape(rr, Wk * rc).contiguous()),
+            "stage2": lambda s1: (s1.reshape(rr, R, Wk, rc).permute(2, 3, 1, 0).reshape(Wk * rc, R, rr).contiguous(),
+                                  i2.reshape(Wk * rc, rr).contiguous()),
+            "stage3": lambda s2: (s2.reshape(Wk, rc, R, rr).permute(0, 3, 2, 1).reshape(Wk * rr, R, rc).contiguous(),
+                                  i3.reshape(Wk * rr, rc).contiguous()),
+            "output": lambda s3: s3.reshape(Wk, rr, R, rc).permute(2, 0, 1, 3).reshape(R, Wk, n2),
+        }
+        stages, prev = [], ()
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0}
+        for name in ("stage1", "stage2", "stage3"):
+            tab, idx = layouts[name](*prev)
+            layout_ms = timer(lambda: layouts[name](*prev), 3)
+            out_s = ogather.rowwise_gather(tab, idx)
+            want_s, plain_ms = wall_ms(lambda: ogather.rowwise_gather_ref(tab, idx), dev)
+            G, _, K = tab.shape
+            lib_idx_s = idx.to(torch.int64).unsqueeze(1).expand(-1, R, -1)
+            st = {
+                "stage": name, "G": G, "K": K, "M": idx.shape[1],
+                "max_abs_err": max_abs_err(out_s, want_s),
+                "ms": timer(lambda: ogather.rowwise_gather(tab, idx), 5),
+                "plain_ms": plain_ms,
+                "bound_ms": 4 * (tab.numel() + idx.numel() + out_s.numel()) / HBM_BYTES_PER_S * 1e3,
+                "library_ms": timer(lambda: torch.gather(tab, 2, lib_idx_s), 5),
+                "layout_before_ms": layout_ms,
+            }
+            stages.append(st)
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                tot[key] += st[key]
+            tot["max_abs_err"] = max(tot["max_abs_err"], st["max_abs_err"])
+            del want_s, lib_idx_s
+            prev = (out_s,)
+        tot["max_abs_err"] = max(
+            tot["max_abs_err"],
+            max_abs_err(layouts["output"](*prev), g_direct[:, :Wk]),
+            max_abs_err(ogather.routed_gather(packed, i1, i2, i3), g_direct[:, :Wk]),
+        )
+        tot.update(
+            W=Wk,
+            stages=stages,
+            output_layout_ms=timer(lambda: layouts["output"](*prev).contiguous(), 3),
+            routed_gather_ms=timer(lambda: ogather.routed_gather(packed, i1, i2, i3), 3),
+        )
+        return tot
+
+    Wc = min(W, omsm.ROUTE_WINDOW_BATCH)
+    chunk, whole = routed_stages(Wc), routed_stages(W)
+    rows.append(
+        {
+            "name": "rowwise_gather",
+            "route": "cuda",
+            "source": GATHER_CU,
+            "replaces": "curdleproofs_tpu/ops/gather.py:265",
+            "launches": launches["rowwise_gather"],
+            "launches_by_phase": {ph: c_["rowwise_gather"] for ph, c_ in by_phase.items() if c_["rowwise_gather"]},
+            "max_abs_err": max(chunk["max_abs_err"], whole["max_abs_err"]),
+            "ms": chunk["ms"],
+            "plain_ms": chunk["plain_ms"],
+            "bound_ms": chunk["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": chunk["library_ms"],
+            "shape": {"r": rr, "c": rc, "W": Wc, "R": R, "three_stages_summed": True,
+                      "chunks_per_msm": -(-W // Wc)},
+            "stages": chunk["stages"],
+            "output_layout_ms": chunk["output_layout_ms"],
+            "routed_gather_ms": chunk["routed_gather_ms"],
+            "all_windows_one_launch": whole,
+            "direct_gather_ms_all_windows": rows[0]["ms"],
+            "route_solve_s_all_windows_one_thread": solve_s,
+        }
+    )
+    del route_tables, g_direct, chunk, whole
     rec = g.reshape(49, W * T * L)
     madd_ops = W * n2 * MONT_PER_OP["madd"] * MULS_PER_MONT
     bsel, totals, _flags = row(
@@ -823,10 +1138,6 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, co
             "phase": "kernel_times",
             "ladder_oracle_check_lanes": n_check,
             "ladder_oracle_check": oracle,
-            # not a kernel of this package yet: the least time of ONE stage of the JAX
-            # package's row-local gather (ops/gather.py:265) over this MSM's records:
-            # the indices read once, 49 rows read and 49 written per record
-            "rowwise_gather_stage_bound_ms": 4 * W * n2 * (1 + 49 + 49) / HBM_BYTES_PER_S * 1e3,
         }
     )
     emit({"kernels": rows})
@@ -890,7 +1201,8 @@ def main() -> int:
         dev = torch.device("cpu")
         omsm.STREAM_MIN, omsm.STREAM_SPLIT, omsm.SEL_MIN_N = 64, 128, 256
         ostream._LANES = 16
-        n_main, n_redo = 128, 128
+        omsm.ROUTE_MIN_FACTOR = 8
+        n_main, n_redo, n_sort = 128, 128, 20
         n_ladder, small_sizes, seg, m_edge = 63, (17, 20), (4, 4), 20
         n_vec_small, n_vec_big, n_sample = 6, 12, 4
         REPS = 1
@@ -900,7 +1212,7 @@ def main() -> int:
             print("chip_smoke: no CUDA device", file=sys.stderr)
             return 1
         dev = torch.device("cuda")
-        n_main, n_redo = 1 << 16, 1 << 14
+        n_main, n_redo, n_sort = 1 << 16, 1 << 14, 1 << 12
         n_ladder, small_sizes, seg, m_edge = omsm.STREAM_MIN - 1, (17, 124, 4096), (64, 128), 256
         n_vec_small, n_vec_big, n_sample = 124, 8192, 256
         gpu_line = subprocess.run(
@@ -909,6 +1221,10 @@ def main() -> int:
         ).stdout.strip().splitlines()[0]
         t0 = time.perf_counter()
         cuda_g1.lib()
+        load_s = time.perf_counter() - t0
+        if not host_native.available():
+            fail("no C compiler: the native host library cannot be built")
+        host_native.lib()
         emit(
             {
                 "phase": "device",
@@ -916,7 +1232,12 @@ def main() -> int:
                 "torch": torch.__version__,
                 "cuda": torch.version.cuda,
                 "build_s": cuda_g1.build_seconds,
-                "load_s": time.perf_counter() - t0,
+                "load_s": load_s,
+                "host_native": {
+                    "cc": host_native.built_with,
+                    "build_s": host_native.build_seconds,
+                    "openmp_threads": host_native.openmp_threads(),
+                },
             }
         )
     n_split = n_main + n_main // 2 + 5
@@ -927,7 +1248,10 @@ def main() -> int:
     scalars = [Fr(rand_scalar(rng)) for _ in range(n_split)]
     emit({"phase": "inputs", "n": n_split, "seed": args.seed, "seconds": time.perf_counter() - t0})
 
-    timed_phase("kernels", phase_kernels, bases, dev, rng, m_edge)
+    n2_main = 2 * n_main
+    route_shape = (*oroute.pick_rc(n2_main, omsm.ROUTE_MIN_FACTOR), -(-130 // omsm.pick_window(n_main)))
+    timed_phase("kernels", phase_kernels, bases, dev, rng, m_edge, route_shape)
+    timed_phase("host_native", phase_host_native, scalars[:n_main], dev)
 
     # the main paths: each sets the launch counts to 0 just before it drives
     # its entry points and returns them as read just after
@@ -935,6 +1259,10 @@ def main() -> int:
         "msm_2e16": timed_phase("msm_2e16", phase_msm_main, bases[:n_main], scalars[:n_main], coef, dev),
         "msm_redo": timed_phase("msm_redo", phase_msm_redo, n_redo, dev),
         "msm_split": timed_phase("msm_split", phase_msm_split, bases, scalars, coef, dev),
+        "msm_routed": timed_phase(
+            "msm_routed", phase_msm_routed, bases[:n_main], scalars[:n_main], coef, dev
+        ),
+        "msm_sort": timed_phase("msm_sort", phase_msm_sort, bases[:n_sort], scalars[:n_sort], coef, dev),
         "msm_ladder": timed_phase(
             "msm_ladder", phase_msm_ladder, bases[:n_ladder], scalars[:n_ladder], coef, dev, small_sizes
         ),

@@ -1,0 +1,369 @@
+/* Native host prep of the streaming Pippenger MSM, with a plain C interface.
+ *
+ * Built with the machine's C compiler at first use
+ *   cc -O3 -fPIC -shared -fopenmp -o libcurdle_host.so host_prep.c route.c
+ * and loaded with ctypes (utils/host_native.py): no Python.h, the caller
+ * allocates every output as a numpy array and passes pointers. ctypes drops
+ * the interpreter lock for the length of a call.
+ *
+ * Two entry points:
+ *   curdle_glv_decompose_batch  the Babai-rounding GLV split of ops/glv.py
+ *   curdle_msm_prep_batch       one call for the numpy chain glv.decompose ->
+ *                               host_digits -> stream_host_prep -> _build_sel
+ *                               of ops/msm.py: GLV split, c-bit digits over
+ *                               the doubled [|k1| | k2] lane set, per-window
+ *                               stable counting sort with the bucket-boundary
+ *                               ranks read off the count prefix, column-major
+ *                               relabel for the scan layout, and the
+ *                               distinct-rank boundary-selection schedule.
+ * Both give the arrays of the numpy chain bit for bit (stable sorts of equal
+ * keys); the tests hold one against the other.
+ */
+#include <stdint.h>
+#include <stdlib.h>
+#include <string.h>
+#ifdef _OPENMP
+#include <omp.h>
+#endif
+
+typedef unsigned __int128 u128;
+typedef uint64_t u64;
+
+/* the order r of BLS12-381 G1, little-endian 64-bit limbs */
+static const u64 FR_ORDER[4] = {0xffffffff00000001ULL, 0x53bda402fffe5bfeULL,
+                                0x3339d80809a1d805ULL, 0x73eda753299d7d48ULL};
+
+/* GLV constants: r = lambda^2 + lambda + 1 (the BLS lattice is exact).
+ * GLV_M = floor(2^640 / r), the Barrett reciprocal. */
+static const u64 GLV_M[7] = {0xdb7b86bbf1d4d267ULL, 0x101613ce4457858fULL,
+                             0x42737a020c0d6393ULL, 0x65043eb4be4bad71ULL,
+                             0x38b5dcb707e08ed3ULL, 0x355094edfede377cULL,
+                             0x0000000000000002ULL};
+static const u64 GLV_LAMP1[2] = {0x0000000100000000ULL, 0xac45a4010001a402ULL};
+static const u64 GLV_LAM[2] = {0x00000000ffffffffULL, 0xac45a4010001a402ULL};
+static const u64 GLV_HALF_R[4] = {0x7fffffff80000000ULL, 0xa9ded2017fff2dffULL,
+                                  0x199cec0404d0ec02ULL, 0x39f6d3a994cebea4ULL};
+
+/* k (4 LE limbs, canonical < r) -> neg1, |k1| (3 limbs), k2 (3 limbs) with
+ * k = (-1)^neg1 * |k1| + k2 * lambda (mod r), |k1| < 2^130, 0 <= k2 <= lambda:
+ * c1 = floor((k*(lambda+1) + r/2) / r) by Barrett (shift 2^640, one
+ * correction step), clamped to lambda. */
+static void glv_decompose(const u64 *k, int *neg1, u64 *k1, u64 *k2) {
+    /* num = k*(lambda+1) + r/2  (< 2^384, 6 limbs; buffer 7) */
+    u64 num[7] = {0};
+    for (int i = 0; i < 4; i++) {
+        u64 c = 0;
+        for (int j = 0; j < 2; j++) {
+            u128 s = (u128)k[i] * GLV_LAMP1[j] + num[i + j] + c;
+            num[i + j] = (u64)s;
+            c = (u64)(s >> 64);
+        }
+        for (int t = i + 2; c && t < 7; t++) {
+            u128 s = (u128)num[t] + c;
+            num[t] = (u64)s;
+            c = (u64)(s >> 64);
+        }
+    }
+    u64 c = 0;
+    for (int j = 0; j < 7; j++) {
+        u128 s = (u128)num[j] + (j < 4 ? GLV_HALF_R[j] : 0) + c;
+        num[j] = (u64)s;
+        c = (u64)(s >> 64);
+    }
+    /* Barrett: q_est = floor(num*M / 2^640) in {q-1, q} */
+    u64 prod[14] = {0};
+    for (int i = 0; i < 7; i++) {
+        u64 cc = 0;
+        for (int j = 0; j < 7; j++) {
+            u128 s = (u128)num[i] * GLV_M[j] + prod[i + j] + cc;
+            prod[i + j] = (u64)s;
+            cc = (u64)(s >> 64);
+        }
+        for (int t = i + 7; cc && t < 14; t++) {
+            u128 s = (u128)prod[t] + cc;
+            prod[t] = (u64)s;
+            cc = (u64)(s >> 64);
+        }
+    }
+    u64 q[3] = {prod[10], prod[11], prod[12]};
+    /* rem = num - q*r; if rem >= r then q += 1 */
+    u64 qr[8] = {0};
+    for (int i = 0; i < 3; i++) {
+        u64 cc = 0;
+        for (int j = 0; j < 4; j++) {
+            u128 s = (u128)q[i] * FR_ORDER[j] + qr[i + j] + cc;
+            qr[i + j] = (u64)s;
+            cc = (u64)(s >> 64);
+        }
+        qr[i + 4] += cc;
+    }
+    u64 rem[7];
+    u64 borrow = 0;
+    for (int j = 0; j < 7; j++) {
+        u128 s = (u128)num[j] - qr[j] - borrow;
+        rem[j] = (u64)s;
+        borrow = (s >> 64) ? 1 : 0;
+    }
+    int ge = 1; /* rem >= r ? (rem has at most 5 meaningful limbs) */
+    if (!(rem[4] || rem[5] || rem[6])) {
+        for (int j = 3; j >= 0; j--) {
+            if (rem[j] > FR_ORDER[j]) { ge = 1; break; }
+            if (rem[j] < FR_ORDER[j]) { ge = 0; break; }
+        }
+    }
+    if (ge) {
+        u128 s = (u128)q[0] + 1;
+        q[0] = (u64)s;
+        if (s >> 64) { s = (u128)q[1] + 1; q[1] = (u64)s; q[2] += (u64)(s >> 64); }
+    }
+    /* clamp q <= lambda */
+    int over = (q[2] != 0) || (q[1] > GLV_LAM[1]) ||
+               (q[1] == GLV_LAM[1] && q[0] > GLV_LAM[0]);
+    if (over) { q[0] = GLV_LAM[0]; q[1] = GLV_LAM[1]; q[2] = 0; }
+    k2[0] = q[0]; k2[1] = q[1]; k2[2] = 0;
+    /* k1 = k - q*lambda (signed; magnitude < 2^130, 3 limbs) */
+    u64 ql[5] = {0};
+    for (int i = 0; i < 3; i++) {
+        u64 cc = 0;
+        for (int j = 0; j < 2; j++) {
+            u128 s = (u128)q[i] * GLV_LAM[j] + ql[i + j] + cc;
+            ql[i + j] = (u64)s;
+            cc = (u64)(s >> 64);
+        }
+        if (i + 2 < 5) ql[i + 2] += cc;
+    }
+    u64 k5[5] = {k[0], k[1], k[2], k[3], 0};
+    u64 d[5];
+    borrow = 0;
+    for (int j = 0; j < 5; j++) {
+        u128 s = (u128)k5[j] - ql[j] - borrow;
+        d[j] = (u64)s;
+        borrow = (s >> 64) ? 1 : 0;
+    }
+    *neg1 = (int)borrow;
+    if (borrow) { /* magnitude = ql - k */
+        u64 b2 = 0;
+        for (int j = 0; j < 5; j++) {
+            u128 s = (u128)ql[j] - k5[j] - b2;
+            d[j] = (u64)s;
+            b2 = (s >> 64) ? 1 : 0;
+        }
+    }
+    k1[0] = d[0]; k1[1] = d[1]; k1[2] = d[2];
+}
+
+static void load_scalar(u64 *k, const uint8_t *le32) {
+    for (int i = 0; i < 4; i++) {
+        u64 v = 0;
+        for (int b = 7; b >= 0; b--) v = (v << 8) | le32[8 * i + b];
+        k[i] = v;
+    }
+}
+
+/* digit w (c bits) of a 3x64-limb little-endian value */
+static inline uint32_t digit_at(const u64 *k, int w, int c) {
+    int b0 = w * c;
+    int limb = b0 >> 6, off = b0 & 63;
+    u64 v = k[limb] >> off;
+    if (off + c > 64 && limb + 1 < 3) v |= k[limb + 1] << (64 - off);
+    return (uint32_t)(v & ((1u << c) - 1));
+}
+
+/* OpenMP threads a parallel region would get; 0 when built without OpenMP. */
+int curdle_host_openmp_threads(void) {
+#ifdef _OPENMP
+    return omp_get_max_threads();
+#else
+    return 0;
+#endif
+}
+
+/* scalars32_le: n canonical scalars of 32 little-endian bytes each.
+ * k1_out, k2_out: 3 little-endian 64-bit limbs per scalar; neg_out: n bytes. */
+int curdle_glv_decompose_batch(const uint8_t *scalars32_le, int64_t n, uint64_t *k1_out,
+                               uint8_t *neg_out, uint64_t *k2_out) {
+    if (n < 0) return -1;
+#ifdef _OPENMP
+#pragma omp parallel for schedule(static) if (n >= 4096)
+#endif
+    for (int64_t i = 0; i < n; i++) {
+        u64 k[4];
+        int neg;
+        load_scalar(k, scalars32_le + 32 * i);
+        glv_decompose(k, &neg, k1_out + 3 * i, k2_out + 3 * i);
+        neg_out[i] = (uint8_t)neg;
+    }
+    return 0;
+}
+
+/* The streaming-MSM host prep over n scalars (2n GLV lanes), window bits c,
+ * L scan lanes (L divides 2n; T = 2n / L steps), W = ceil(130 / c) windows,
+ * B = 2^c buckets.
+ *
+ *   neg_out   (n,)        u8   sign of k1
+ *   order_cm  (W, 2n)     i32  digit-sort order, column-major: flat position
+ *                              t*L + l holds sorted rank l*T + t
+ *   bidx      (W, B-1)    i32  flat position of each bucket-boundary prefix,
+ *                              -1 for an empty prefix
+ *   lidx      (W, B-1)    i32  lane(e) - 1, -1 where lane(e) == 0 or empty
+ *   slot_options          the selection-slot capacities to try, ascending
+ *   sel       capacity W*T*max(slot_options); the first W*T*S entries are the
+ *                              (W*T, S) lane ids, -1 = empty slot
+ *   bpos      (W, B-1)    i32  t*S + slot into the window's selected table
+ *   S_out                 the smallest option that fits every (window, step),
+ *                              0 when none does (sel and bpos then unwritten)
+ *
+ * Returns 0, -1 on bad arguments, -2 when out of memory. */
+int curdle_msm_prep_batch(const uint8_t *scalars32_le, int64_t n_in, int c, int L,
+                          const int32_t *slot_options, int n_options, uint8_t *neg_out,
+                          int32_t *order_cm, int32_t *bidx, int32_t *lidx, int32_t *sel,
+                          int32_t *bpos, int32_t *S_out) {
+    if (n_in <= 0 || c < 1 || c > 16 || L <= 0 || n_options < 0) return -1;
+    const size_t n = (size_t)n_in, n2 = 2 * n;
+    if (n2 % (size_t)L || n2 > 0x7fffffffu) return -1;
+    const int W = (130 + c - 1) / c;
+    const int B = 1 << c;
+    const size_t T = n2 / (size_t)L;
+
+    uint16_t *dig = (uint16_t *)malloc(2 * (size_t)W * n2);
+    int32_t *earr = (int32_t *)malloc(4 * (size_t)W * (B - 1) + 4);
+    int32_t *slotc = (int32_t *)malloc(4 * T);
+    if (!dig || !earr || !slotc) {
+        free(dig); free(earr); free(slotc);
+        return -2;
+    }
+    int32_t maxocc = 0;
+    int oom = 0;
+
+#ifdef _OPENMP
+#pragma omp parallel for schedule(static)
+#endif
+    for (size_t i = 0; i < n; i++) {
+        u64 k[4], k1[3], k2[3];
+        int neg;
+        load_scalar(k, scalars32_le + 32 * i);
+        glv_decompose(k, &neg, k1, k2);
+        neg_out[i] = (uint8_t)neg;
+        for (int w = 0; w < W; w++) {
+            dig[(size_t)w * n2 + i] = (uint16_t)digit_at(k1, w, c);
+            dig[(size_t)w * n2 + n + i] = (uint16_t)digit_at(k2, w, c);
+        }
+    }
+#ifdef _OPENMP
+#pragma omp parallel
+#endif
+    {
+        /* per-thread scratch (windows are independent) */
+        int32_t *ord_t = (int32_t *)malloc(4 * n2);
+        int32_t *cnt_t = (int32_t *)malloc(4 * (size_t)B);
+        int32_t *incl_t = (int32_t *)malloc(4 * (size_t)B);
+        int32_t *slotc_t = (int32_t *)malloc(4 * T);
+        const int ok = ord_t && cnt_t && incl_t && slotc_t;
+        if (!ok) {
+#ifdef _OPENMP
+#pragma omp atomic write
+#endif
+            oom = 1;
+        }
+#ifdef _OPENMP
+#pragma omp for schedule(dynamic)
+#endif
+        for (int w = 0; w < W; w++) {
+            if (!ok) continue;
+            const uint16_t *dw = dig + (size_t)w * n2;
+            memset(cnt_t, 0, 4 * (size_t)B);
+            for (size_t i = 0; i < n2; i++) cnt_t[dw[i]]++;
+            int32_t run = 0;
+            for (int b = 0; b < B; b++) {
+                int32_t cb = cnt_t[b];
+                cnt_t[b] = run; /* exclusive prefix: placement cursor */
+                run += cb;
+                incl_t[b] = run;
+            }
+            /* stable counting-sort placement */
+            for (size_t i = 0; i < n2; i++) ord_t[cnt_t[dw[i]]++] = (int32_t)i;
+            /* column-major relabel (cache-blocked transpose of the (L, T)
+             * rank matrix): flat position t*L + l = sorted rank l*T + t */
+            int32_t *oc = order_cm + (size_t)w * n2;
+            const size_t BT = 64;
+            for (size_t l0 = 0; l0 < (size_t)L; l0 += BT)
+                for (size_t t0 = 0; t0 < T; t0 += BT) {
+                    size_t l1 = l0 + BT < (size_t)L ? l0 + BT : (size_t)L;
+                    size_t t1 = t0 + BT < T ? t0 + BT : T;
+                    for (size_t l = l0; l < l1; l++)
+                        for (size_t t = t0; t < t1; t++)
+                            oc[t * (size_t)L + l] = ord_t[l * T + t];
+                }
+            /* bucket-boundary ranks + full-prefix index tables */
+            int32_t *ew = earr + (size_t)w * (B - 1);
+            int32_t *bw = bidx + (size_t)w * (B - 1);
+            int32_t *lw = lidx + (size_t)w * (B - 1);
+            for (int t = 0; t < B - 1; t++) {
+                int32_t e = incl_t[t] - 1;
+                ew[t] = e;
+                if (e >= 0) {
+                    int32_t te = e % (int32_t)T, le = e / (int32_t)T;
+                    bw[t] = te * L + le;
+                    lw[t] = le > 0 ? le - 1 : -1;
+                } else {
+                    bw[t] = -1;
+                    lw[t] = -1;
+                }
+            }
+            /* boundary-selection occupancy pre-pass (distinct ranks/step) */
+            memset(slotc_t, 0, 4 * T);
+            int32_t prev = -1, mo = 0;
+            for (int t = 0; t < B - 1; t++) {
+                int32_t e = ew[t];
+                if (e >= 0 && e != prev) {
+                    int32_t occ = ++slotc_t[e % (int32_t)T];
+                    if (occ > mo) mo = occ;
+                    prev = e;
+                }
+            }
+#ifdef _OPENMP
+#pragma omp critical
+#endif
+            if (mo > maxocc) maxocc = mo;
+        }
+        free(ord_t); free(cnt_t); free(incl_t); free(slotc_t);
+    }
+    if (oom) {
+        free(dig); free(earr); free(slotc);
+        return -2;
+    }
+
+    /* the smallest selection-slot capacity that fits (0 = overflow: the
+     * caller takes the full-prefix path through bidx / lidx) */
+    int S = 0;
+    for (int i = 0; i < n_options; i++)
+        if (maxocc <= slot_options[i]) { S = slot_options[i]; break; }
+    *S_out = S;
+    if (S) {
+        memset(sel, 0xFF, 4 * (size_t)W * T * S); /* -1 = empty slot */
+        for (int w = 0; w < W; w++) {
+            const int32_t *ew = earr + (size_t)w * (B - 1);
+            int32_t *bw = bpos + (size_t)w * (B - 1);
+            int32_t *sw = sel + (size_t)w * T * S;
+            memset(slotc, 0, 4 * T);
+            int32_t prev = -1, prevpos = -1;
+            for (int t = 0; t < B - 1; t++) {
+                int32_t e = ew[t];
+                if (e < 0) {
+                    bw[t] = -1;
+                } else {
+                    if (e != prev) {
+                        int32_t ut = e % (int32_t)T;
+                        int32_t slot = slotc[ut]++;
+                        sw[(size_t)ut * S + slot] = e / (int32_t)T;
+                        prevpos = ut * S + slot;
+                        prev = e;
+                    }
+                    bw[t] = prevpos;
+                }
+            }
+        }
+    }
+    free(dig); free(earr); free(slotc);
+    return 0;
+}

@@ -7,7 +7,7 @@ Counterpart of the JAX package's `ops.pallas_g1` (`_build_kernel` with its
 `scalar_mul_w1` over `_build_glv_ladder_kernel`, `_build_glv_ladder_w4_kernel`,
 `_build_ladder_w3_kernel`, `_build_ladder_kernel`). The kernels are
 hand-written CUDA C++ for sm_90a under ../csrc (`fq.cuh`, `g1.cuh`;
-`kernels.cu` and `ladders.cu`, plain C interfaces). Each `.cu` is compiled
+`kernels.cu`, `ladders.cu` and `gather.cu`, plain C interfaces). Each `.cu` is compiled
 with `nvcc` at first use into a shared library of its own under `build/`
 inside the package directory, both compilers started together, and loaded
 with `ctypes`; nothing is built or imported from CUDA when this module is
@@ -72,6 +72,9 @@ ENTRY_POINTS = {
         "curdle_ladder_w3": [_P, _P, _P, _P, _P, _I, _P],
         "curdle_ladder_w1": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
     },
+    "gather.cu": {
+        "curdle_rowwise_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
+    },
 }
 
 KERNEL_NAMES = (
@@ -83,6 +86,7 @@ KERNEL_NAMES = (
     "ladder_glv_w4",
     "ladder_w3",
     "ladder_w1",
+    "rowwise_gather",
 )
 
 # launches per kernel since the last reset_launch_counts()

@@ -20,9 +20,11 @@ the add-formula doubling degeneracy):
   * always: |k1| < 2^129, 0 <= k2 <= lambda < 2^128 — both fit 9 16-bit
     limbs / 43 radix-8 windows.
 
-The decomposition runs vectorized in NumPy 16-bit limb arithmetic on host
-(u64 accumulators, exact); a plain-int reference is kept for tests. Own
-copy of the JAX package's `ops.glv` (pure numpy), bit-identical outputs.
+The decomposition runs on the host: in the package's native library where
+the machine has a C compiler (utils.host_native, 128-bit limb arithmetic),
+else vectorized in NumPy 16-bit limb arithmetic (u64 accumulators, exact);
+the two give identical arrays. A plain-int reference is kept for tests. Own
+copy of the JAX package's `ops.glv`, bit-identical outputs.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from typing import Tuple
 import numpy as np
 
 from curdleproofs_tpu_torch.fields import FR_MOD
+from curdleproofs_tpu_torch.utils import host_native
 
 Z_ABS = 0xD201000000010000  # |z|, the BLS12-381 curve parameter
 LAMBDA = Z_ABS * Z_ABS - 1  # 128 bits; lambda^2 + lambda + 1 == r exactly
@@ -147,7 +150,21 @@ def decompose(scalars: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     (s1 (9, n) uint32, neg1 (n,) bool, s2 (9, n) uint32) with
     k = (-1)^neg1 * s1 + s2 * LAMBDA (mod r), |s1| < 2^130, s2 <= LAMBDA.
 
-    Vectorized numpy only: this package has no native host backend."""
+    The native batched decomposition where the machine can build it, else
+    `decompose_numpy`; the same arrays either way."""
+    if not host_native.available():
+        return decompose_numpy(scalars)
+    k1, neg, k2 = host_native.glv_decompose_batch(scalars)
+    # 3 little-endian u64 per half = 12 u16 limbs, of which the first 9 are kept
+    n = k1.shape[0]
+    s1 = np.ascontiguousarray(k1.view("<u2").reshape(n, 12)[:, :GLV_LIMBS].T, dtype=np.uint32)
+    s2 = np.ascontiguousarray(k2.view("<u2").reshape(n, 12)[:, :GLV_LIMBS].T, dtype=np.uint32)
+    return s1, neg.astype(bool), s2
+
+
+def decompose_numpy(scalars: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """`decompose` in vectorized numpy: what the native call is held against,
+    and what runs where the machine has no C compiler."""
     k = scalars.astype(np.uint64)
     n = k.shape[1]
 

@@ -1,13 +1,17 @@
 """Multi-scalar multiplication: the GLV-split streaming Pippenger for large
-n and the GLV ladder for everything below it.
+n, the GLV ladder for everything below it, and the two sort-based Pippenger
+engines.
 
 Counterpart of the JAX package's `ops.msm`: `msm()` -> `msm_pippenger_stream`
 -> `_msm_stream_impl` -> a per-chunk device body -> `_combine_windows_host`
 from STREAM_MIN lanes up, and `msm()` -> `msm_ladder` (one `ladder_glv`
 launch, then a tree reduce over the point kernel) below it;
-`msm_ladder_segmented` runs K independent same-width MSMs as one launch.
+`msm_ladder_segmented` runs K independent same-width MSMs as one launch;
+`msm_pippenger` (sort on the device) and `msm_pippenger_hostsort` (sort on
+the host) are the engines the streaming one grew out of, reached through
+`msm(method="pippenger" | "hostsort")`.
 
-The streaming Pippenger:
+The Pippenger all of them share:
 
 For each c-bit window w with digits d_i and buckets t in [0, 2^c):
     S_w = sum_i d_i * P_i = sum_t t * bucket_t
@@ -16,28 +20,38 @@ inclusive group prefix P and boundary indices e_t = (last sorted lane with
 digit <= t):
     S_w = (B-1) * total  -  sum_{t=0}^{B-2} P[e_t]
 No scatter, no data-dependent shapes, exact for any input including repeated
-digits, zero scalars and infinity points. The work splits by processor:
+digits, zero scalars and infinity points. In the streaming engine the work
+splits by processor:
 
-  * HOST (numpy): GLV decomposition, digit extraction, per-window stable
-    argsort, bucket-boundary searchsorted, boundary-selection schedule.
-  * DEVICE: gathering point records into digit-sorted order (ops.gather),
-    one mixed add per record in the streaming scan (ops.stream_scan), the
-    lane-offset stitch and the bucket-boundary reduce (ops.scan over the
-    point kernel).
+  * HOST: GLV decomposition, digit extraction, per-window stable counting
+    sort, bucket boundaries, boundary-selection schedule: one call into the
+    native library (utils.host_native) where the machine has a C compiler,
+    the numpy chain (`glv.decompose` -> `host_digits` -> `stream_host_prep`
+    -> `_build_sel`) elsewhere, on the redo and with the GLV split off. With
+    `routed=True` also the route solves (ops.route), one per window on a
+    thread pool.
+  * DEVICE: gathering point records into digit-sorted order (ops.gather: the
+    direct gather, or the 3-stage routed gather), one mixed add per record
+    in the streaming scan (ops.stream_scan), the lane-offset stitch and the
+    bucket-boundary reduce (ops.scan over the point kernel).
   * HOST: the Horner combination of the window sums, O(255) exact point ops.
 
 The fast path scans without the doubling branch and emits only the
-host-selected boundary prefixes (`_stream_window_partials_sel`); a doubling
+host-selected boundary prefixes (`_stream_window_partials_sel`, or
+`_stream_window_partials_routed_sel` behind the routed gather); a doubling
 flag or a selection-slot overflow sends the work to the complete,
-full-prefix scan (`_stream_window_partials`). The result is always exact.
+full-prefix scan (`_stream_window_partials` / `_stream_window_partials_routed`).
+The result is always exact.
 
-This package gathers the sorted order with the direct gather kernel; the JAX
-package's 3-stage routed gather (ops.route), its native host prep and its
-sort-based `method="pippenger"` / `"hostsort"` engines are not in this
-package yet.
+The JAX package packs the index tables of a chunk into one int16 buffer for
+its host-to-device link (`_pack_idx_chunk`, `_decode_packed_tables`); here
+they go to the card as the int32 arrays they are.
 """
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
+import os
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -50,13 +64,15 @@ from curdleproofs_tpu_torch.ops import g1 as og
 from curdleproofs_tpu_torch.ops import gather as ogather
 from curdleproofs_tpu_torch.ops import glv as oglv
 from curdleproofs_tpu_torch.ops import modarith as ma
+from curdleproofs_tpu_torch.ops import route as oroute
 from curdleproofs_tpu_torch.ops import scan as oscan
 from curdleproofs_tpu_torch.ops import stream_scan as ostream
 from curdleproofs_tpu_torch.ops.cuda_g1 import _beta_mont_limbs
 from curdleproofs_tpu_torch.ops.fieldspec import FQ_SPEC, from_reference, ints_to_limbs, to_reference
 from curdleproofs_tpu_torch.ops.g1 import APoints, JPoints
+from curdleproofs_tpu_torch.utils import host_native
 from curdleproofs_tpu_torch.utils.device import DeviceArg, resolve_device
-from curdleproofs_tpu_torch.utils.profiling import timed
+from curdleproofs_tpu_torch.utils.profiling import metrics, timed
 
 FR_BITS = 255
 
@@ -70,6 +86,18 @@ GLV_STREAM_MIN_N = 128  # below this, decompose/packing overhead dominates
 # scan at this lane count (the JAX package ties it to its routed gather,
 # ROUTE_MIN_N there). Tests lower it.
 SEL_MIN_N = 1 << 14
+
+# The routed (3-stage) sorted-order gather. The JAX package takes it from
+# ROUTE_MIN_N lanes up, because its direct gather costs a matrix product
+# quadratic in n. Here the direct gather is one indexed copy, and the routed
+# one costs three such copies, three transposes and a route solve per window
+# on the host, so `routed=None` means the direct gather at every size
+# (PERF.md has the two walls at n = 2^16) and the routed gather runs where
+# the caller passes `routed=True`. ROUTE_MIN_FACTOR is the least r and c of
+# the (r x c) view; tests lower it.
+ROUTE_MIN_FACTOR = 128
+# windows per chunk when routed: a chunk launches as soon as its solves land
+ROUTE_WINDOW_BATCH = 2
 
 # boundary-selection slot capacities per scan step, tried smallest first.
 # DISTINCT ranks per (window, step) have mean occupancy (B-1)/T; escalating
@@ -85,6 +113,11 @@ STREAM_SPLIT = 1 << 16
 
 # auto-dispatch: the streaming Pippenger takes sizes from here up
 STREAM_MIN = 1 << 14
+
+# The JAX package's crossover between its sort-based Pippenger and its XLA
+# ladder on a CPU backend; `msm()` here never dispatches on it (below
+# STREAM_MIN it runs the GLV ladder kernel), kept under its name.
+LADDER_THRESHOLD = 2048
 
 # At or below this size exact host arithmetic beats a device round-trip.
 HOST_THRESHOLD = 16
@@ -134,6 +167,159 @@ def host_digits(scalars: np.ndarray, c: int, bits: int = FR_BITS) -> np.ndarray:
             v = v | (s[i0 + 1] << np.uint32(16 - off))
         rows.append(v & mask)
     return np.stack(rows).astype(np.uint16)
+
+
+def extract_digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
+    """(16, n) canonical Fr limbs on the device -> (W, n) int32 c-bit window
+    digits (c <= 16); the tensor twin of `host_digits`."""
+    if not 1 <= c <= 16:
+        raise ValueError("window size must be in [1, 16]")
+    W = -(-FR_BITS // c)
+    pad = torch.zeros((2,) + tuple(scalars.shape[1:]), dtype=scalars.dtype, device=scalars.device)
+    s = torch.cat([scalars, pad], dim=0)
+    mask = (1 << c) - 1
+    rows = []
+    for w in range(W):
+        i0, off = divmod(w * c, 16)
+        v = s[i0] >> off
+        if off + c > 16:
+            v = v | (s[i0 + 1] << (16 - off))
+        rows.append(v & mask)
+    return torch.stack(rows)
+
+
+# ---------------------------------------------------------------------------
+# The sort-based Pippenger engines: the formula above with the whole prefix
+# P from `ops.scan.inclusive_scan` (about 2n complete adds per window over
+# the point kernel). `msm_pippenger` sorts on the device (torch.sort and
+# torch.searchsorted, library calls as they are XLA ops in the JAX package),
+# `msm_pippenger_hostsort` on the host (numpy). Records and boundary
+# prefixes are fetched with `gather_u32`; an empty prefix (index -1) gathers
+# the zero triple, which is the identity.
+# ---------------------------------------------------------------------------
+
+
+def _sorted_window_partials(packed, order, e):
+    """Device pipeline for one window chunk: packed (49, n) point records,
+    order (wb, n) int32 digit-sort permutations, e (wb, B-1) int32 bucket
+    boundary ranks in the sorted order (-1 = empty prefix). Returns (total
+    JPoints (24,), bucket-weighted boundary sums (24, wb))."""
+    g = ogather.gather_u32_shared(packed, order)  # (49, wb, n)
+    P = oscan.inclusive_scan(og.lift(APoints(g[:24], g[24:48], g[48] != 0)))
+    bg = ogather.gather_u32(torch.cat([P.x, P.y, P.z], dim=0), e)  # (72, wb, B-1)
+    bsums = oscan.tree_reduce_hybrid(_split72(bg))  # (24, wb)
+    total = JPoints(P.x[:, 0, -1], P.y[:, 0, -1], P.z[:, 0, -1])
+    return total, bsums
+
+
+def _window_partials(packed, digits, c: int):
+    """`_sorted_window_partials` for digits (wb, n) on the device: the sort
+    and the bucket boundaries are computed there."""
+    B = 1 << c
+    sd, order = torch.sort(digits, dim=-1, stable=True)
+    ts = torch.arange(B - 1, dtype=digits.dtype, device=digits.device)
+    e = torch.searchsorted(sd, ts.expand(digits.shape[0], -1).contiguous(), right=True) - 1
+    return _sorted_window_partials(
+        packed, order.to(torch.int32).contiguous(), e.to(torch.int32).contiguous()
+    )
+
+
+def _pad_pow2_inputs(points: APoints, scalars: torch.Tensor, min_width: int = 32):
+    """Pad to a power of two (>= min_width), which `inclusive_scan` needs;
+    identity bases / zero scalars are no-ops."""
+    n = points.x.shape[-1]
+    m = _pow2_at_least(n, min_width)
+    if m == n:
+        return points, scalars
+    spad = torch.zeros((scalars.shape[0], m - n), dtype=scalars.dtype, device=scalars.device)
+    return _pad_points(points, m), torch.cat([scalars, spad], dim=-1)
+
+
+def hostsort_point_ops(n: int, c: int) -> int:
+    """Group adds executed per MSM by the sort-based Pippenger engines."""
+    W = -(-FR_BITS // c)
+    return W * (2 * n + (1 << c)) + 255
+
+
+def _sorted_window_batch(n: int, W: int) -> int:
+    """Windows per chunk: bounds the scan's working set (about 600 rows of
+    32 bits per lane are live) to about 10 GB."""
+    return max(1, min(W, (1 << 22) // max(n, 1)))
+
+
+def msm_pippenger(
+    points: APoints,
+    scalars: torch.Tensor,
+    c: Optional[int] = None,
+    window_batch: Optional[int] = None,
+) -> G1:
+    """Full MSM with the sort on the device: points (24, n) affine tensors,
+    scalars (16, n) canonical limbs as a tensor on the same device -> host
+    G1."""
+    n_in = points.x.shape[-1]
+    c_est = c or pick_window(max(n_in, 32))
+    with timed("msm.pippenger", items=n_in, point_ops=hostsort_point_ops(n_in, c_est)):
+        return _msm_pippenger_impl(points, scalars, c, window_batch)
+
+
+def _msm_pippenger_impl(points, scalars, c=None, window_batch=None) -> G1:
+    points, scalars = _pad_pow2_inputs(points, scalars)
+    n = points.x.shape[-1]
+    c = c or pick_window(n)
+    W = -(-FR_BITS // c)
+    if window_batch is None:
+        window_batch = _sorted_window_batch(n, W)
+    digits = extract_digits(scalars, c)
+    packed = _pack_records(points)
+    pending = [
+        _window_partials(packed, digits[w0 : w0 + window_batch], c)
+        for w0 in range(0, W, window_batch)
+    ]
+    return _combine_packed(_pack_results(pending[0][0], [b for _, b in pending]), c, W)
+
+
+def msm_pippenger_hostsort(
+    points: APoints,
+    scalars: np.ndarray,
+    c: Optional[int] = None,
+    window_batch: Optional[int] = None,
+) -> G1:
+    """Full MSM with the sort on the host: points (24, n) affine tensors,
+    scalars (16, n) canonical limbs as HOST numpy -> host G1."""
+    scalars_np = np.asarray(scalars).astype(np.uint32)
+    n_in = points.x.shape[-1]
+    c = c or pick_window(max(n_in, 32))
+    with timed("msm.hostsort", items=n_in, point_ops=hostsort_point_ops(n_in, c)):
+        return _msm_hostsort_impl(points, scalars_np, c, window_batch)
+
+
+def _msm_hostsort_impl(points, scalars_np, c: int, window_batch=None) -> G1:
+    dev = points.x.device
+    n_in = points.x.shape[-1]
+    n = _pow2_at_least(n_in, 32)
+    if n != n_in:  # pad with identity/zero lanes to a power of two
+        points = _pad_points(points, n)
+        scalars_np = np.concatenate([scalars_np, np.zeros((16, n - n_in), np.uint32)], axis=-1)
+    W = -(-FR_BITS // c)
+    B = 1 << c
+    if window_batch is None:
+        window_batch = _sorted_window_batch(n, W)
+    # host: digits, per-window stable argsort, bucket boundaries
+    digits = host_digits(scalars_np, c)  # (W, n) uint16
+    order = np.argsort(digits, axis=-1, kind="stable").astype(np.int32)
+    sd = np.take_along_axis(digits, order.astype(np.intp), axis=-1)
+    ts = np.arange(B - 1, dtype=np.uint16)
+    e = np.empty((W, B - 1), np.int32)
+    for w in range(W):
+        e[w] = np.searchsorted(sd[w], ts, side="right").astype(np.int32) - 1
+    packed = _pack_records(points)
+    pending = []
+    for w0 in range(0, W, window_batch):
+        sl = slice(w0, w0 + window_batch)
+        pending.append(
+            _sorted_window_partials(packed, from_reference(order[sl], dev), from_reference(e[sl], dev))
+        )
+    return _combine_packed(_pack_results(pending[0][0], [b for _, b in pending]), c, W)
 
 
 def stream_point_ops(n: int, c: int) -> int:
@@ -189,9 +375,21 @@ def _stitch_and_reduce(local_tab, bpos, totals, lidx, L: int):
 
 
 def _stream_tail(g, bidx, lidx, T: int, L: int):
+    """Gathered records (49, wb, n) -> complete full-prefix scan -> tail."""
     wb = g.shape[1]
     prefix, totals = ostream.scan_records(g.reshape(49, wb * T * L), wb, T, L)
     return _stitch_and_reduce(prefix, bidx, totals, lidx, L)
+
+
+def _stream_sel_tail(g, sel, bpos, lidx, T: int, L: int, S: int):
+    """Gathered records (49, wb, n) -> no-doubling scan with in-step boundary
+    selection -> tail. Returns (total, bsums, flags (wb,))."""
+    wb = g.shape[1]
+    bsel, totals, flags = ostream.scan_records_sel(
+        g.reshape(49, wb * T * L), sel, wb, T, L, S
+    )
+    total, bsums = _stitch_and_reduce(bsel, bpos, totals, lidx, L)
+    return total, bsums, flags
 
 
 def _stream_window_partials(packed, idx_cm, bidx, lidx, T: int, L: int):
@@ -209,6 +407,16 @@ def _stream_window_partials(packed, idx_cm, bidx, lidx, T: int, L: int):
     return _stream_tail(g, bidx, lidx, T, L)
 
 
+def _stream_window_partials_routed(packed, i1, i2, i3, bidx, lidx, T: int, L: int):
+    """`_stream_window_partials` with the sorted-order gather replaced by the
+    3-stage routed gather (ops.route + ops.gather.routed_gather): the
+    column-major sort permutation arrives factored into within-row /
+    within-column local index tables i1 (wb, r, c), i2 (wb, c, r),
+    i3 (wb, r, c)."""
+    g = ogather.routed_gather(packed, i1, i2, i3)  # (49, wb, n)
+    return _stream_tail(g, bidx, lidx, T, L)
+
+
 def _stream_window_partials_sel(packed, idx_cm, sel, bpos, lidx, T: int, L: int, S: int):
     """Device pipeline for one window chunk with in-scan boundary selection:
     the scan emits only the DISTINCT bucket-boundary prefixes (host-scheduled
@@ -217,13 +425,17 @@ def _stream_window_partials_sel(packed, idx_cm, sel, bpos, lidx, T: int, L: int,
     from the COMPACT (T*S)-wide selected-prefix table, so a rank selected
     once can be consumed with any multiplicity. Returns (total, bsums, flags
     (wb,)); a nonzero flag invalidates the chunk."""
-    wb = idx_cm.shape[0]
     g = ogather.gather_u32_shared(packed, idx_cm)  # (49, wb, n)
-    bsel, totals, flags = ostream.scan_records_sel(
-        g.reshape(49, wb * T * L), sel, wb, T, L, S
-    )
-    total, bsums = _stitch_and_reduce(bsel, bpos, totals, lidx, L)
-    return total, bsums, flags
+    return _stream_sel_tail(g, sel, bpos, lidx, T, L, S)
+
+
+def _stream_window_partials_routed_sel(
+    packed, i1, i2, i3, sel, bpos, lidx, T: int, L: int, S: int
+):
+    """`_stream_window_partials_sel` behind the routed gather: the JAX
+    package's production body (`_routed_sel_body` there)."""
+    g = ogather.routed_gather(packed, i1, i2, i3)  # (49, wb, n)
+    return _stream_sel_tail(g, sel, bpos, lidx, T, L, S)
 
 
 def _build_sel(e: np.ndarray, T: int, S: int):
@@ -288,20 +500,94 @@ def stream_host_prep(digits: np.ndarray, c: int, L: int):
     return order_cm, bidx, lidx, e
 
 
+def _pow2_at_least(n: int, floor: int) -> int:
+    m = floor
+    while m < n:
+        m *= 2
+    return m
+
+
+def _pad_points(points: APoints, m: int) -> APoints:
+    """Pad (24, n) affine points with identity lanes up to width m."""
+    n = points.x.shape[-1]
+    if m == n:
+        return points
+    dev = points.x.device
+    zc = torch.zeros((points.x.shape[0], m - n), dtype=points.x.dtype, device=dev)
+    return APoints(
+        torch.cat([points.x, zc], dim=-1),
+        torch.cat([points.y, zc], dim=-1),
+        torch.cat([points.inf, torch.ones(m - n, dtype=torch.bool, device=dev)], dim=-1),
+    )
+
+
+def _pack_records(points: APoints) -> torch.Tensor:
+    """(24, n) affine points -> (49, n) records [x | y | inf]."""
+    return torch.cat(
+        [points.x, points.y, points.inf.unsqueeze(0).to(points.x.dtype)], dim=0
+    ).contiguous()
+
+
+def _pack_results(total: JPoints, bsums: Sequence[JPoints]) -> torch.Tensor:
+    """The scan total (24,) and every chunk's boundary sums (24, wb) as ONE
+    (72, 1 + W) tensor: one transfer home."""
+    return torch.cat(
+        [torch.cat([total.x, total.y, total.z]).reshape(72, 1)]
+        + [torch.cat([b.x, b.y, b.z], dim=0).reshape(72, -1) for b in bsums],
+        dim=1,
+    )
+
+
+def _combine_packed(res: torch.Tensor, c: int, W: int) -> G1:
+    """Read a `_pack_results` tensor back and combine the windows on the host."""
+    arr = to_reference(res)
+    pts = og.jpoints_to_host(JPoints(arr[:24], arr[24:48], arr[48:]))
+    return _combine_windows_host(pts[0], pts[1 : 1 + W], c, W)
+
+
+_ROUTE_POOL: Optional[ThreadPoolExecutor] = None
+
+
+def _route_pool() -> ThreadPoolExecutor:
+    """The route-solve thread pool, one per process with a worker per core
+    (at most 8), shared by every MSM."""
+    global _ROUTE_POOL
+    if _ROUTE_POOL is None:
+        _ROUTE_POOL = ThreadPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 1), thread_name_prefix="route-solve"
+        )
+    return _ROUTE_POOL
+
+
+def _solve_route(rr: int, rc: int, row: np.ndarray):
+    """One window's route solve, on a pool thread; its seconds go to the span
+    `msm.stream.route_solve` (summed over the threads)."""
+    t0 = time.perf_counter()
+    out = oroute.decompose(rr, rc, row)
+    metrics().record("msm.stream.route_solve", time.perf_counter() - t0)
+    return out
+
+
 def msm_pippenger_stream(
     points: APoints,
     scalars: np.ndarray,
     c: Optional[int] = None,
     window_batch: Optional[int] = None,
     sel_scan: Optional[bool] = None,
+    routed: Optional[bool] = None,
 ) -> G1:
     """Full MSM via the streaming host-sorted Pippenger. points (24, n)
     affine tensors (the device they lie on is the device it runs on),
     scalars (16, n) canonical limbs as HOST numpy (the sort runs on host)
     -> host G1. Widths above STREAM_SPLIT run as independent slices at the
-    slice size (each slice picks its own window bits), one after the other,
-    combined by plain addition. sel_scan forces the scan with in-step
-    boundary selection on or off (default: on from SEL_MIN_N lanes)."""
+    slice size (each slice picks its own window bits), one after the other
+    (two in flight were no faster on an H100 host, PERF.md), combined by
+    plain addition. sel_scan forces the scan with in-step boundary selection
+    on or off (default: on from SEL_MIN_N lanes). routed=True puts the
+    records into sorted order with the 3-stage routed gather (route solves on
+    the host, three `rowwise_gather` launches a chunk); routed=None and False
+    take the direct gather, which is the faster of the two on this hardware
+    (PERF.md)."""
     scalars_np = np.asarray(scalars).astype(np.uint32)
     n_in = points.x.shape[-1]
     if STREAM_SPLIT and n_in > STREAM_SPLIT:
@@ -318,12 +604,12 @@ def msm_pippenger_stream(
                     points.x[:, o : o + sz], points.y[:, o : o + sz], points.inf[o : o + sz]
                 )
                 acc = acc + _msm_stream_impl(
-                    sub, scalars_np[:, o : o + sz], cs, window_batch, sel_scan
+                    sub, scalars_np[:, o : o + sz], cs, window_batch, sel_scan, routed
                 )
             return acc
     c = c or pick_window(max(n_in, 32))
     with timed("msm.stream", items=n_in, point_ops=stream_point_ops(n_in, c)):
-        return _msm_stream_impl(points, scalars_np, c, window_batch, sel_scan)
+        return _msm_stream_impl(points, scalars_np, c, window_batch, sel_scan, routed)
 
 
 def _sync(dev: torch.device) -> None:
@@ -337,6 +623,7 @@ def _msm_stream_impl(
     c: int,
     window_batch: Optional[int] = None,
     sel_scan: Optional[bool] = None,
+    routed: Optional[bool] = None,
     _safe: bool = False,
 ) -> G1:
     dev = points.x.device
@@ -345,78 +632,100 @@ def _msm_stream_impl(
     # ---- host prep --------------------------------------------------------
     with timed("msm.stream.host_prep"):
         n_in = points.x.shape[-1]
-        m = 128
-        while m < n_in:
-            m *= 2
-        if m != n_in:  # pad with identity/zero lanes to a power of two
-            zc = torch.zeros((24, m - n_in), dtype=points.x.dtype, device=dev)
-            points = APoints(
-                torch.cat([points.x, zc], dim=-1),
-                torch.cat([points.y, zc], dim=-1),
-                torch.cat(
-                    [points.inf, torch.ones(m - n_in, dtype=torch.bool, device=dev)], dim=-1
-                ),
-            )
+        n = _pow2_at_least(n_in, 128)
+        if n != n_in:  # pad with identity/zero lanes to a power of two
+            points = _pad_points(points, n)
             scalars_np = np.concatenate(
-                [scalars_np, np.zeros((16, m - n_in), np.uint32)], axis=-1
+                [scalars_np, np.zeros((16, n - n_in), np.uint32)], axis=-1
             )
-        n = m
-        B = 1 << c
         # GLV endomorphism split: each 255-bit scalar becomes two <=129-bit
         # halves k = (-1)^neg*s1 + s2*lam, the lane set doubles to
         # [+-P | phi(P)], and W halves. Scan work is unchanged (W*n records
         # either way) but every per-window cost halves with W.
         glv_split = STREAM_GLV and n >= GLV_STREAM_MIN_N
-        neg1 = None
         if glv_split:
-            s1, neg1, s2 = oglv.decompose(scalars_np.astype(np.uint64))
-            digits = host_digits(
-                np.concatenate([s1, s2], axis=1).astype(np.uint32), c, bits=130
-            )  # (ceil(130/c), 2n) — |s1| < 2^129 plus one bit of headroom
             n *= 2
-        else:
-            digits = host_digits(scalars_np, c)  # (W, n) uint16
         if sel_scan is None:
             sel_scan = n >= SEL_MIN_N
-        W = digits.shape[0]
+        routed = bool(routed)  # None: the direct gather, at every size
         L = ostream.pick_lanes(n)
         T = n // L
-        order_cm, bidx, lidx, e = stream_host_prep(digits, c, L)
-        # in-scan boundary selection: S adapts to the smallest slot option
+        neg1 = None
+        sel_all = bpos_all = None
+        S = 0
+        route_futs = None
+
+        def submit_solves(order_cm: np.ndarray):
+            # one future per window, so solves overlap each other, the rest
+            # of the prep and the device work of earlier chunks
+            rr, rc = oroute.pick_rc(n, ROUTE_MIN_FACTOR)
+            pool = _route_pool()
+            return [pool.submit(_solve_route, rr, rc, order_cm[w]) for w in range(len(order_cm))]
+
+        # In-scan boundary selection: S adapts to the smallest slot option
         # that fits, and the full-prefix path takes over when even the
         # largest overflows. _safe forces the full-prefix path with the
         # doubling-complete scan — the redo after a flagged collision.
-        sel_all = bpos_all = None
-        S = 0
-        if sel_scan and not _safe:
-            for S in SEL_SLOT_OPTIONS:
-                sel_all, bpos_all = _build_sel(e, T, S)
-                if sel_all is not None:
-                    break
+        want_sel = sel_scan and not _safe
+        if glv_split and not _safe and host_native.available():
+            # ONE native call: GLV split + digits + counting sort + boundary
+            # ranks + column-major relabel + boundary-selection schedule
+            with timed("msm.stream.host_prep.native"):
+                neg1, order_cm, bidx, lidx, sel_all, bpos_all, S = host_native.msm_prep_batch(
+                    scalars_np, c, L, SEL_SLOT_OPTIONS if want_sel else ()
+                )
+            if routed:
+                route_futs = submit_solves(order_cm)
+        else:
+            with timed("msm.stream.host_prep.numpy"):
+                if glv_split:
+                    s1, neg1, s2 = oglv.decompose(scalars_np.astype(np.uint64))
+                    digits = host_digits(
+                        np.concatenate([s1, s2], axis=1).astype(np.uint32), c, bits=130
+                    )  # (ceil(130/c), 2n) — |s1| < 2^129 plus one bit of headroom
+                else:
+                    digits = host_digits(scalars_np, c)  # (W, n) uint16
+                order_cm, bidx, lidx, e = stream_host_prep(digits, c, L)
+                if routed:  # before the selection schedule, which the solves overlap
+                    route_futs = submit_solves(order_cm)
+                if want_sel:
+                    for S in SEL_SLOT_OPTIONS:
+                        sel_all, bpos_all = _build_sel(e, T, S)
+                        if sel_all is not None:
+                            break
+        W = order_cm.shape[0]
         if window_batch is None:
-            # per-chunk live set: gathered records + prefix table
-            window_batch = max(1, min(W, (1 << 22) // max(n, 1)))
+            # routed: small chunks, so a chunk launches as soon as its solves
+            # land; direct: bounded by the per-chunk live set (gathered
+            # records + prefix table)
+            window_batch = ROUTE_WINDOW_BATCH if routed else max(1, min(W, (1 << 22) // max(n, 1)))
 
     # ---- device -----------------------------------------------------------
     with timed("msm.stream.device"):
         if glv_split:
             packed = _glv_stream_packed(
                 points.x, points.y, points.inf, from_reference(neg1, dev)
-            )
+            ).contiguous()
         else:
-            packed = torch.cat(
-                [points.x, points.y, points.inf.unsqueeze(0).to(points.x.dtype)], dim=0
-            )
-        packed = packed.contiguous()
+            packed = _pack_records(points)
         pending = []  # (total, bsums, flags) device handles, launches stay queued
         for w0 in range(0, W, window_batch):
             sl = slice(w0, w0 + window_batch)
-            idx_d = from_reference(order_cm[sl], dev)
             lidx_d = from_reference(lidx[sl], dev)
+            if routed:
+                with timed("msm.stream.route_wait"):
+                    parts = [f.result() for f in route_futs[sl]]
+                gather_args = tuple(
+                    from_reference(np.concatenate([p[k] for p in parts]), dev) for k in range(3)
+                )
+                sel_body, full_body = _stream_window_partials_routed_sel, _stream_window_partials_routed
+            else:
+                gather_args = (from_reference(order_cm[sl], dev),)
+                sel_body, full_body = _stream_window_partials_sel, _stream_window_partials
             if sel_all is not None:
-                total, bsums, flags = _stream_window_partials_sel(
+                total, bsums, flags = sel_body(
                     packed,
-                    idx_d,
+                    *gather_args,
                     from_reference(sel_all[w0 * T : (w0 + window_batch) * T], dev),
                     from_reference(bpos_all[sl], dev),
                     lidx_d,
@@ -425,17 +734,13 @@ def _msm_stream_impl(
                     S,
                 )
             else:
-                total, bsums = _stream_window_partials(
-                    packed, idx_d, from_reference(bidx[sl], dev), lidx_d, T, L
+                total, bsums = full_body(
+                    packed, *gather_args, from_reference(bidx[sl], dev), lidx_d, T, L
                 )
                 flags = None
             pending.append((total, bsums, flags))
         # everything rides home in ONE (72, 1+W) tensor, plus the flags
-        res = torch.cat(
-            [torch.cat([pending[0][0].x, pending[0][0].y, pending[0][0].z]).reshape(72, 1)]
-            + [torch.cat([b.x, b.y, b.z], dim=0).reshape(72, -1) for _, b, _ in pending],
-            dim=1,
-        )
+        res = _pack_results(pending[0][0], [b for _, b, _ in pending])
         flags_d = (
             torch.cat([f for _, _, f in pending]) if pending[0][2] is not None else None
         )
@@ -445,15 +750,13 @@ def _msm_stream_impl(
     with timed("msm.stream.combine"):
         redo = flags_d is not None and bool(to_reference(flags_d).any())
         if not redo:
-            arr = to_reference(res)
-            pts = og.jpoints_to_host(JPoints(arr[:24], arr[24:48], arr[48:]))
-            out = _combine_windows_host(pts[0], pts[1 : 1 + W], c, W)
+            out = _combine_packed(res, c, W)
     if redo:
         # a p == q doubling collision hit the fast-path scan (requires a
         # running prefix to equal the incoming base — essentially only
         # constructible on purpose). Redo on the doubling-safe full-prefix
         # pipeline: exactness preserved, cost ~2x once.
-        return _msm_stream_impl(points_in, scalars_in, c, None, sel_scan, _safe=True)
+        return _msm_stream_impl(points_in, scalars_in, c, None, sel_scan, routed, _safe=True)
     return out
 
 
@@ -528,8 +831,10 @@ def msm(
     device and no explicit "cpu" it raises.
 
     method "auto": exact host arithmetic up to HOST_THRESHOLD points, the GLV
-    ladder below STREAM_MIN, the streaming Pippenger from there; "ladder" and
-    "stream" force one engine at any size."""
+    ladder below STREAM_MIN, the streaming Pippenger (direct gather) from
+    there; "ladder", "stream", "hostsort" (sort-based Pippenger, sort on the
+    host) and "pippenger" (sort on the device) force one engine at any
+    size."""
     dev = resolve_device(device)
     if len(bases) != len(scalars):
         raise ValueError("msm length mismatch")
@@ -542,11 +847,8 @@ def msm(
             with timed("msm.host", items=n, point_ops=383 * n):
                 return msm_host(list(bases), list(scalars))
         method = "stream" if n >= STREAM_MIN else "ladder"
-    if method not in ("stream", "ladder"):
-        raise NotImplementedError(
-            f"msm: method {method!r} is not in this package yet; 'auto', 'ladder' and "
-            "'stream' are (the sort-based 'pippenger' and 'hostsort' engines are not)"
-        )
+    if method not in ("stream", "ladder", "hostsort", "pippenger"):
+        raise ValueError(f"msm: unknown method {method!r}")
     with timed(f"msm.{method}.pack"):
         pts = og.pack_points(list(bases), dev)
         scs_np = np.asarray(ints_to_limbs([s.v for s in scalars], 16), dtype=np.uint32)
@@ -554,4 +856,8 @@ def msm(
         # no pad to a multiple of 128 as in the JAX package (a compiled-shape
         # and tile rule there): the kernel masks its ragged last block
         return msm_ladder(pts, scs_np)
-    return msm_pippenger_stream(pts, scs_np, c=c)
+    if method == "stream":
+        return msm_pippenger_stream(pts, scs_np, c=c)
+    if method == "hostsort":
+        return msm_pippenger_hostsort(pts, scs_np, c=c)
+    return msm_pippenger(pts, from_reference(scs_np, dev), c=c)

@@ -1,12 +1,15 @@
-"""Batched group reductions and small prefix scans over point vectors.
+"""Batched group reductions and prefix scans over point vectors.
 
-The streaming MSM (ops.msm) needs two collective primitives over Jacobian
-point vectors, both built purely from complete group adds (`g1.jadd`, which
+The MSM engines (ops.msm) need three collective primitives over Jacobian
+point vectors, all built purely from complete group adds (`g1.jadd`, which
 is the CUDA point kernel on the card):
 
   * `_hs_scan`: fixed-width Hillis-Steele inclusive scan (the lane-offset
-    stitch over the L scan lanes)
+    stitch over the L scan lanes of the streaming MSM)
   * `tree_reduce_hybrid`: sum N points -> 1 (the bucket-boundary reduce)
+  * `inclusive_scan`: P_j = p_0 + ... + p_j for all j, Blelloch-style, about
+    2N adds (the prefix of the sort-based Pippenger engines): pair sums and
+    recursion while the vector is wider than SMALL_WIDTH, `_hs_scan` below
 
 The order of the adds is the JAX package's (`ops.scan`), so the Jacobian
 representatives, not only the points, come out identical: halve by adding the
@@ -27,6 +30,31 @@ def _roll(p: JPoints, shift: int) -> JPoints:
         torch.roll(p.x, shift, dims=-1),
         torch.roll(p.y, shift, dims=-1),
         torch.roll(p.z, shift, dims=-1),
+    )
+
+
+def _interleave(a: JPoints, b: JPoints) -> JPoints:
+    """[a0, b0, a1, b1, ...] along the last axis."""
+
+    def go(x, y):
+        return torch.stack([x, y], dim=-1).reshape(x.shape[:-1] + (2 * x.shape[-1],))
+
+    return JPoints(go(a.x, b.x), go(a.y, b.y), go(a.z, b.z))
+
+
+def _split_even_odd(p: JPoints):
+    ev = JPoints(p.x[..., 0::2], p.y[..., 0::2], p.z[..., 0::2])
+    od = JPoints(p.x[..., 1::2], p.y[..., 1::2], p.z[..., 1::2])
+    return ev, od
+
+
+def _shift_in_inf(p: JPoints) -> JPoints:
+    """Shift right by one along the last axis, shifting in infinity."""
+    pad = jinf(p.x.shape[1:-1] + (1,), device=p.x.device)
+    return JPoints(
+        torch.cat([pad.x, p.x[..., :-1]], dim=-1),
+        torch.cat([pad.y, p.y[..., :-1]], dim=-1),
+        torch.cat([pad.z, p.z[..., :-1]], dim=-1),
     )
 
 
@@ -84,3 +112,17 @@ def tree_reduce_hybrid(p: JPoints) -> JPoints:
         hi = JPoints(p.x[..., n:], p.y[..., n:], p.z[..., n:])
         p = jadd(lo, hi)
     return _hs_reduce(p)
+
+
+def inclusive_scan(p: JPoints) -> JPoints:
+    """Inclusive group-prefix-scan along the last axis (width = power of 2)."""
+    n = p.x.shape[-1]
+    if n & (n - 1):
+        raise ValueError("inclusive_scan requires power-of-two width")
+    if n <= SMALL_WIDTH:
+        return _hs_scan(p)
+    ev, od = _split_even_odd(p)
+    pairs = jadd(ev, od)  # width n/2: sums of adjacent pairs
+    sp = inclusive_scan(pairs)  # prefixes at odd positions
+    evens = jadd(_shift_in_inf(sp), ev)  # prefixes at even positions
+    return _interleave(evens, sp)

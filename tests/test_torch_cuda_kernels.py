@@ -65,6 +65,37 @@ def test_gather(card):
         ogather.gather_u32(table.transpose(1, 2), idx)  # shape mismatch, non-contiguous
 
 
+# G, R, K, M: an edge shape (one group, M not a multiple of the block) and
+# the three stage shapes of the routed gather at r = 16, c = 8, W = 3
+@pytest.mark.parametrize("G,R,K,M", [(1, 5, 16, 300), (6, 49, 700, 24), (16, 49, 8, 24), (24, 49, 16, 16), (48, 49, 8, 8)])
+def test_rowwise_gather(card, G, R, K, M):
+    rng = np.random.default_rng(G * M)
+    table = torch.from_numpy(rng.integers(0, 1 << 31, (G, R, K)).astype(np.int32)).to(card)
+    idx = torch.from_numpy(rng.integers(-2, K + 2, (G, M)).astype(np.int32)).to(card)
+    before = cuda_g1.launch_counts["rowwise_gather"]
+    got = ogather.rowwise_gather(table, idx)
+    assert cuda_g1.launch_counts["rowwise_gather"] == before + 1
+    assert torch.equal(got, ogather.rowwise_gather_ref(table, idx))
+    with pytest.raises(ValueError):
+        ogather.rowwise_gather(table.transpose(1, 2), idx)  # non-contiguous
+
+
+def test_routed_gather(card):
+    from curdleproofs_tpu_torch.ops import route as oroute
+
+    rng = np.random.default_rng(3)
+    r, c, W = 16, 8, 3
+    n = r * c
+    packed = rng.integers(0, 1 << 16, (49, n)).astype(np.int32)
+    src = np.stack([rng.permutation(n) for _ in range(W)]).astype(np.int32)
+    tables = oroute.decompose(r, c, src)
+    before = cuda_g1.launch_counts["rowwise_gather"]
+    got = ogather.routed_gather(torch.from_numpy(packed).to(card), *(torch.from_numpy(t).to(card) for t in tables))
+    assert cuda_g1.launch_counts["rowwise_gather"] == before + 3
+    want = np.stack([packed[:, src[w]] for w in range(W)], axis=1)
+    assert np.array_equal(got.cpu().numpy(), want)
+
+
 def test_scans(points, card):
     ap, _ = points
     W, T, L, S = 2, 4, 32, 8

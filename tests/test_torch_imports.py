@@ -31,6 +31,9 @@ print("BAD=" + ",".join(bad))
         "curdleproofs_tpu_torch.ops.g1",
         "curdleproofs_tpu_torch.ops.vector",
         "curdleproofs_tpu_torch.ops.modarith",
+        "curdleproofs_tpu_torch.ops.route",
+        "curdleproofs_tpu_torch.ops.glv",
+        "curdleproofs_tpu_torch.utils.host_native",
         "chip_smoke",
     ],
 )
@@ -74,6 +77,8 @@ def test_entry_points_refuse_to_run_without_a_card():
         lambda: msm([], []),
         lambda: msm(pts, scs, device="cuda"),
         lambda: msm(pts, scs, method="ladder"),
+        lambda: msm(pts, scs, method="pippenger"),
+        lambda: msm(pts, scs, method="hostsort"),
         lambda: pkg.scale_points(pts, scs),
         lambda: pkg.scale_points_common(pts, scs[0]),
         lambda: pkg.fold_points(pts, pts, scs[0]),
@@ -113,6 +118,12 @@ def test_wrappers_have_no_cpu_path_for_cuda_requests():
         cuda_g1.check_tensor("t", x, (24, 4))
     from curdleproofs_tpu_torch.ops.g1 import APoints
 
+    from curdleproofs_tpu_torch.ops import gather as ogather
+
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_g1.check_tensor("rowwise_gather table", torch.zeros((2, 3, 4), dtype=torch.int32), (2, 3, 4))
+    # a CPU tensor takes the plain version and counts no launch
+    ogather.rowwise_gather(torch.zeros((2, 3, 4), dtype=torch.int32), torch.zeros((2, 5), dtype=torch.int32))
     pts = APoints(x, x, torch.zeros(4, dtype=torch.bool))
     sc = torch.zeros((16, 4), dtype=torch.int32)
     for call in (lambda: cuda_g1.scalar_mul(pts, sc), lambda: cuda_g1.scalar_mul_w1(pts, sc)):

@@ -126,9 +126,18 @@ def test_msm_dispatch_and_the_methods_it_lacks(monkeypatch):
     msm(pts, scs, device="cpu")
     msm(pts[:5], scs[:5], method="stream", device="cpu")
     assert calls == [("ladder", 17), ("ladder", 31), ("stream", 32), ("stream", 5)]
+    # the sort-based engines are in the package too: msm() lacks no method
+    monkeypatch.setattr(
+        tmsm, "msm_pippenger", lambda p, s, c=None: calls.append(("pippenger", type(s).__name__)) or G1()
+    )
+    monkeypatch.setattr(
+        tmsm, "msm_pippenger_hostsort", lambda p, s, c=None: calls.append(("hostsort", type(s).__name__)) or G1()
+    )
     for method in ("pippenger", "hostsort"):
-        with pytest.raises(NotImplementedError, match="pippenger"):
-            msm(pts, scs, method=method, device="cpu")
+        msm(pts, scs, method=method, device="cpu")
+    assert calls[-2:] == [("pippenger", "Tensor"), ("hostsort", "ndarray")]
+    with pytest.raises(ValueError, match="unknown method"):
+        msm(pts, scs, method="sorted", device="cpu")
     with pytest.raises(ValueError, match="length mismatch"):
         msm(pts, scs[:-1], method="ladder", device="cpu")
     assert msm([], [], method="ladder", device="cpu") == G1.identity()

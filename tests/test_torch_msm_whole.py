@@ -133,9 +133,9 @@ def test_msm_stream_equals_jax_and_oracle(name, monkeypatch):
         calls["sel"] += 1
         return sel(*a, **k)
 
-    def spy_impl(points, scalars_np, c, window_batch=None, sel_scan=None, _safe=False):
+    def spy_impl(points, scalars_np, c, window_batch=None, sel_scan=None, routed=None, _safe=False):
         calls["safe"] += int(_safe)
-        return impl(points, scalars_np, c, window_batch, sel_scan, _safe)
+        return impl(points, scalars_np, c, window_batch, sel_scan, routed, _safe)
 
     monkeypatch.setattr(tmsm, "_stream_window_partials", spy_full)
     monkeypatch.setattr(tmsm, "_stream_window_partials_sel", spy_sel)
@@ -171,6 +171,8 @@ def test_msm_dispatch():
         msm(pts, scs[:-1], device="cpu")
     # auto between the host threshold and STREAM_MIN: the GLV ladder
     assert msm(pts, scs, device="cpu") == msm_host(pts, scs)
-    for method in ("hostsort", "pippenger"):
-        with pytest.raises(NotImplementedError, match="pippenger"):
-            msm(pts, scs, method=method, device="cpu")
+    # every engine answers at any size; no method is left unported
+    for method in ("ladder", "stream", "hostsort", "pippenger"):
+        assert msm(pts, scs, c=None if method == "ladder" else 5, method=method, device="cpu") == msm_host(pts, scs)
+    with pytest.raises(ValueError, match="unknown method"):
+        msm(pts, scs, method="sorted", device="cpu")

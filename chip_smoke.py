@@ -13,8 +13,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              native host library's build time and OpenMP threads
   kernels    the nine kernels vs their plain versions at small shapes with
              edge lanes (identity, P+P, P+(-P), a forced p == q collision in
-             scan_sel, empty and repeated selection slots, out-of-range
-             gather indices; rowwise_gather at one group with a ragged M and
+             scan_sel at split 1 and at the default split, the two equal as
+             points; empty and repeated selection slots, out-of-range gather
+             indices, a ragged M, shared and per-window tables, both gather
+             layouts; rowwise_gather at one group with a ragged M and
              at the three stage shapes of the routed gather, per chunk of two
              windows and with all windows in one launch, routed_gather
              against packed[:, src]; for the four ladders 256 lanes with the edge
@@ -48,7 +50,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the bitwise ladder cross-checks the windowed one at n = 8192
   kernel_times  each kernel at the shapes the phases above give it vs its
              plain version (equality), timed with CUDA events, beside the
-             least time the card could take; rowwise_gather per stage of the
+             least time the card could take; scan_sel at every split (the
+             `split_sweep`, lane totals on a sample as points); gather_u32
+             with its record-major copy, the copy and the kernel alone, the
+             other layout, torch.gather and torch.index_select, both layouts
+             at the sorted-order gather of n/4 and n/2 (`layout_probe`), and the
+             stitch's two gathers in both layouts; rowwise_gather per stage of the
              routed gather at the chunk shape the routed path launches,
              beside torch.gather, and the transposes between the stages (the
              same with all windows in one launch as an extra field). Launch counts are those of the eight main-path phases
@@ -57,7 +64,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit. `--rehearse-cpu` walks the same control flow at
 a tiny size on the CPU with the plain versions, to find faults without a
-card; it prints no result and exits 2.
+card; it prints no result and exits 2. `--product-variants` adds a phase
+after kernel_times: kernels.cu and ladders.cu built once per variant of the
+Montgomery product (operands by value, the default; by reference; inlined) and
+with scan_sel's registers not capped, eight compilers side by side, each
+build's ptxas figures and nvcc seconds, and scan_sel (default split and split
+1), point_op and ladder_glv_w3 timed under every build that compiled, at the
+shapes above, bit-equal to the loaded build. `--ptxas` prints the default build's
+ptxas figures without a card.
 """
 from __future__ import annotations
 
@@ -202,6 +216,15 @@ def wall_ms(fn, dev) -> tuple:
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def same_points(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Two (72, ...) Jacobian tensors hold the same points, lane for lane."""
+    def host(t):
+        t = t.reshape(72, -1)
+        return og.jpoints_to_host(og.JPoints(t[:24], t[24:48], t[48:]))
+
+    return host(a) == host(b)
+
+
 def max_abs_err(got, want) -> int:
     """Largest absolute difference over a pair (or pairs) of integer tensors."""
     if isinstance(got, torch.Tensor):
@@ -315,21 +338,42 @@ def phase_kernels(bases, dev, rng, m_ladder, route_shape):
             }
     out["point_op"] = point
 
-    # gather: random table, indices from -3 to N + 2
-    R, W, N, M = 49, 2, 200, 300
-    table = torch.from_numpy(rng.integers(0, 1 << 16, (R, W, N)).astype(np.int32)).to(dev)
-    idx = torch.from_numpy(rng.integers(-3, N + 3, (W, M)).astype(np.int32)).to(dev)
-    g = ogather.gather_u32(table, idx)
-    w = ogather.gather_u32_ref(table, idx)
-    gs = ogather.gather_u32_shared(table[:, 0].contiguous(), idx)
-    ws = ogather.gather_u32_ref(table[:, :1].expand(R, W, N), idx)
+    # gather: random tables, indices from -3 to N + 2, ragged M, per-window
+    # and shared tables, point records and Jacobian triples, in both layouts
+    # (the wrapper's pick and the other one), each one launch
+    gather_cases = {}
+    for name, (R, Wt, W, N, M) in {
+        "records49": (49, 2, 2, 200, 300), "shared49": (49, 1, 3, 200, 300), "triples72": (72, 3, 3, 5000, 333),
+    }.items():
+        table = torch.from_numpy(rng.integers(0, 1 << 16, (R, Wt, N)).astype(np.int32)).to(dev)
+        idx = torch.from_numpy(rng.integers(-3, N + 3, (W, M)).astype(np.int32)).to(dev)
+        want = ogather.gather_u32_ref(table.expand(R, W, N), idx)
+        errs = {}
+        for records in (True, False):
+            src = ogather.record_major(table) if records else table
+            before = cuda_g1.launch_counts["gather_u32"]
+            got = ogather.gather_layout(src, idx, R, records=records)
+            errs["records" if records else "rows"] = {
+                "max_abs_err": max_abs_err(got, want),
+                "launched": cuda_g1.launch_counts["gather_u32"] - before,
+            }
+        before = cuda_g1.launch_counts["gather_u32"]
+        got = ogather.gather_u32_shared(table[:, 0], idx) if Wt == 1 else ogather.gather_u32(table, idx)
+        errs["wrapper"] = {
+            "max_abs_err": max_abs_err(got, want),
+            "launched": cuda_g1.launch_counts["gather_u32"] - before,
+        }
+        gather_cases[name] = errs
     safe = idx.clamp(0, N - 1).to(torch.int64).unsqueeze(0).expand(R, -1, -1)
     out["gather_u32"] = {
-        "equal": max_abs_err([g, gs], [w, ws]) == 0,
+        "cases": gather_cases,
+        "equal": all(v["max_abs_err"] == 0 for c in gather_cases.values() for v in c.values()),
         "ms": cuda_ms(lambda: ogather.gather_u32(table, idx), 5) if dev.type == "cuda" else None,
         "plain_ms": wall_ms(lambda: ogather.gather_u32_ref(table, idx), dev)[1],
         "library_ms": wall_ms(lambda: torch.gather(table, 2, safe), dev)[1],
     }
+    if dev.type == "cuda" and any(v["launched"] != 1 for c in gather_cases.values() for v in c.values()):
+        fail("gather_u32: the wrapper did not launch its kernel once per call")
 
     # rowwise_gather: one group with a ragged M and indices from -3 to K + 2,
     # then the three stage shapes of the routed gather as the routed path
@@ -386,18 +430,28 @@ def phase_kernels(bases, dev, rng, m_ladder, route_shape):
     sel = rng.integers(-1, L, (W * T, S)).astype(np.int32)
     sel[0, :4] = [7, 7, -1, L]  # repeated lane, empty, out of range
     sel_d = torch.from_numpy(sel).to(dev)
-    got = ostream.scan_records_sel(rec, sel_d, W, T, L, S)
-    want = ostream.scan_records_sel_ref(rec, sel_d, W, T, L, S)
-    flags = [int(v) for v in got[2].cpu()]
-    out["scan_sel"] = {
-        "equal": max_abs_err(list(got), list(want)) == 0,
-        "flags": flags,
-        "collision_flagged": flags == [1, 0],
-        "ms": cuda_ms(lambda: ostream.scan_records_sel(rec, sel_d, W, T, L, S), 3)
-        if dev.type == "cuda"
-        else None,
-        "plain_ms": wall_ms(lambda: ostream.scan_records_sel_ref(rec, sel_d, W, T, L, S), dev)[1],
-    }
+    # at split 1 and at the default split: bit-equal to the plain version at
+    # the same split; window 1 (no collision) equal as points to split 1
+    k_main = ostream.split_steps(T)
+    by_split = {}
+    for name, k in (("scan_sel_split1", 1), ("scan_sel", k_main)):
+        got = ostream.scan_records_sel(rec, sel_d, W, T, L, S, split=k)
+        want = ostream.scan_records_sel_ref(rec, sel_d, W, T, L, S, split=k)
+        flags = [int(v) for v in got[2].cpu()]
+        by_split[k] = got
+        out[name] = {
+            "split": k,
+            "equal": max_abs_err(list(got), list(want)) == 0,
+            "flags": flags,
+            "collision_flagged": flags == [1, 0],
+            "ms": cuda_ms(lambda k=k: ostream.scan_records_sel(rec, sel_d, W, T, L, S, split=k), 3)
+            if dev.type == "cuda"
+            else None,
+            "plain_ms": wall_ms(lambda k=k: ostream.scan_records_sel_ref(rec, sel_d, W, T, L, S, split=k), dev)[1],
+        }
+    out["scan_sel"]["window1_points_equal_split1"] = all(
+        same_points(a[:, 1], b[:, 1]) for a, b in zip(by_split[k_main][:2], by_split[1][:2])
+    )
     got = ostream.scan_records(rec, W, T, L)
     want = ostream.scan_records_ref(rec, W, T, L)
     out["scan_full"] = {
@@ -409,7 +463,7 @@ def phase_kernels(bases, dev, rng, m_ladder, route_shape):
     }
     out["ladders"] = lad = ladder_edge_checks(bases, dev, rng, m_ladder)
     emit(out)
-    bad = [k for k in ("gather_u32", "scan_sel", "scan_full") if not out[k]["equal"]]
+    bad = [k for k in ("gather_u32", "scan_sel", "scan_sel_split1", "scan_full") if not out[k]["equal"]]
     bad += [f"point_op[{k}]" for k, v in point.items() if not v["equal"]]
     for k, v in lad.items():
         if isinstance(v, dict):
@@ -419,8 +473,10 @@ def phase_kernels(bases, dev, rng, m_ladder, route_shape):
                 fail(f"{k}: the wrapper launched its kernel {v['launched']} times, not once")
     if not 0 < lad["negative_k1_lanes"] < lad["m"]:
         bad.append("ladder lanes lack a negative or a positive k1")
-    if not out["scan_sel"]["collision_flagged"]:
+    if not (out["scan_sel"]["collision_flagged"] and out["scan_sel_split1"]["collision_flagged"]):
         bad.append("scan_sel flags")
+    if not out["scan_sel"]["window1_points_equal_split1"]:
+        bad.append("scan_sel split vs split 1 as points")
     bad += [f"rowwise_gather[{k}]" for k, v in rowwise.items() if v["max_abs_err"] != 0]
     if dev.type == "cuda" and any(v.get("launched", 1) != 1 for v in rowwise.values()):
         fail("rowwise_gather: the wrapper did not launch its kernel once per call")
@@ -904,7 +960,7 @@ def glv_ladder_products(s1, s2, w: int) -> int:
     return lanes * (table + iters * w * MONT_PER_OP["dbl"]) + adds * MONT_PER_OP["jadd"]
 
 
-def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, coef):
+def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, coef, variants=False):
     """Rebuild the tensors the main paths hand each kernel (same host prep,
     same records) and compare kernel and plain version on them."""
     n = len(bases)
@@ -927,6 +983,7 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, co
     idx_d, sel_d = from_reference(order_cm, dev), from_reference(sel, dev)
     bpos_d, lidx_d = from_reference(bpos, dev), from_reference(lidx, dev)
     rows = []
+    timer = cuda_ms if dev.type == "cuda" else (lambda fn, iters: wall_ms(fn, dev)[1])
 
     stream_shape = {"W": W, "T": T, "L": L, "S": S, "n": n2}
 
@@ -956,19 +1013,55 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, co
         )
         return got
 
-    # gather_u32: the sorted-order gather of the point records
+    # gather_u32: the sorted-order gather of the point records, as the main
+    # path calls it (the record-major copy included), beside its parts, the
+    # other layout, torch.gather and torch.index_select
     tab3 = packed.unsqueeze(1)
     flat_idx = idx_d.reshape(1, W * n2)
     lib_idx = flat_idx.to(torch.int64).unsqueeze(0).expand(49, -1, -1)
     g = row(
         "gather_u32",
         "curdleproofs_tpu/ops/gather.py:82",
-        lambda: ogather.gather_u32(tab3, flat_idx),
-        lambda: ogather.gather_u32_ref(tab3, flat_idx),
+        lambda: ogather.gather_u32_shared(packed, idx_d),
+        lambda: ogather.gather_u32_ref(tab3, flat_idx).reshape(49, W, n2),
         ops=0,
-        nbytes=4 * (packed.numel() + flat_idx.numel() + 49 * W * n2),
+        nbytes=4 * (packed.numel() + idx_d.numel() + 49 * W * n2),
         library_fn=lambda: torch.gather(tab3, 2, lib_idx),
     )
+    del lib_idx
+    rec_tab = ogather.record_major(tab3)
+    rows[-1].update(
+        layout="records" if ogather.records_pay(49, 1, n2, W, n2) else "rows",
+        copy_ms=timer(lambda: ogather.record_major(tab3), 5),
+        kernel_ms=timer(lambda: ogather.gather_layout(rec_tab, idx_d, 49, records=True), 5),
+        rows_layout_ms=timer(lambda: ogather.gather_layout(tab3, idx_d, 49, records=False), 5),
+        index_select_records_ms=timer(lambda: torch.index_select(rec_tab[0], 0, flat_idx[0].to(torch.int64)), 5),
+    )
+    del rec_tab
+    # both layouts, the record-major copy included, for the sorted-order
+    # gather of msm() at n/4 and n/2 (widths are padded to powers of two, so
+    # these are the two narrower stream shapes), from those scalars' host prep
+    layout_probe = {}
+    for n_p in (n // 4, n // 2):
+        c_p = omsm.pick_window(n_p)
+        d_p = omsm.host_digits(np.concatenate([s1[:, :n_p], s2[:, :n_p]], axis=1).astype(np.uint32), c_p, bits=130)
+        W_p, n2_p = d_p.shape
+        idx_p = from_reference(omsm.stream_host_prep(d_p, c_p, ostream.pick_lanes(n2_p))[0], dev)
+        tab_p = packed[:, :n2_p].contiguous().unsqueeze(1)
+        by_rows = ogather.gather_layout(tab_p, idx_p, 49, records=False)
+        layout_probe[str(n_p)] = {
+            "table": [49, 1, n2_p],
+            "idx": [W_p, n2_p],
+            "table_bytes": 4 * tab_p.numel(),
+            "layout": "records" if ogather.records_pay(49, 1, n2_p, W_p, n2_p) else "rows",
+            "records_ms": timer(lambda: ogather.gather_layout(ogather.record_major(tab_p), idx_p, 49, records=True), 5),
+            "rows_ms": timer(lambda: ogather.gather_layout(tab_p, idx_p, 49, records=False), 5),
+            "max_abs_err": max_abs_err(
+                ogather.gather_layout(ogather.record_major(tab_p), idx_p, 49, records=True), by_rows
+            ),
+        }
+        del by_rows
+    rows[-1]["layout_probe"] = layout_probe
     # rowwise_gather: the three stages of the routed gather of the same records,
     # at the shape the routed path launches them (a chunk of ROUTE_WINDOW_BATCH
     # windows) and, beside it, with all W windows in one launch; tables from
@@ -978,8 +1071,7 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, co
     route_tables = tuple(from_reference(t, dev) for t in oroute.decompose(rr, rc, order_cm))
     solve_s = time.perf_counter() - t0
     R = 49
-    timer = cuda_ms if dev.type == "cuda" else (lambda fn, iters: wall_ms(fn, dev)[1])
-    g_direct = g.reshape(R, W, n2)  # what the direct gather made of the same records
+    g_direct = g  # what the direct gather made of the same records
 
     def routed_stages(Wk):
         """The three launches of ops.gather.routed_gather over the first Wk
@@ -1060,6 +1152,7 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, co
     del route_tables, g_direct, chunk, whole
     rec = g.reshape(49, W * T * L)
     madd_ops = W * n2 * MONT_PER_OP["madd"] * MULS_PER_MONT
+    k_main = ostream.split_steps(T)
     bsel, totals, _flags = row(
         "scan_sel",
         "curdleproofs_tpu/ops/stream_scan.py:163",
@@ -1068,7 +1161,24 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, co
         ops=madd_ops,
         nbytes=4 * (rec.numel() + sel_d.numel() + 72 * W * T * S + 72 * W * L + W),
         iters=3,
+        shape=dict(stream_shape, split=k_main),
     )
+    # the kernel at every split; lane totals on a 256-lane sample against the
+    # default split's, as points (the plain scan at full shape runs only once)
+    sample = torch.arange(256, device=dev)
+    win, lane = sample % W, (sample * 37) % L
+    sweep = {}
+    for k in (1, 2, 4, 8, 16, 32):
+        if k > T:
+            continue
+        got_k = ostream.scan_records_sel(rec, sel_d, W, T, L, S, split=k)
+        sweep[str(k)] = {
+            "ms": timer(lambda k=k: ostream.scan_records_sel(rec, sel_d, W, T, L, S, split=k), 3),
+            "totals_sample_equal": same_points(got_k[1][:, win, lane], totals[:, win, lane]),
+            "flags": int(got_k[2].sum()),
+        }
+        del got_k
+    rows[-1]["split_sweep"] = sweep
     row(
         "scan_full",
         "curdleproofs_tpu/ops/stream_scan.py:93",
@@ -1078,11 +1188,31 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, co
         nbytes=4 * (rec.numel() + 72 * W * T * L + 72 * W * L),
         iters=3,
     )
-    # point_op: the boundary stitch, local prefix + lane offset, (24, W, B-1)
+    # the stitch's two gathers, in the layout the wrapper picks and in the
+    # other one (the record-major copy included)
     lane_tab = totals  # any (72, W, L) table of valid points serves as offsets
+    stitch = {}
+    for name, (tab, ix) in {"bsel": (bsel, bpos_d), "lane_offsets": (lane_tab, lidx_d)}.items():
+        _, Wk, Nk = tab.shape
+        pay = ogather.records_pay(72, Wk, Nk, W, ix.shape[1])
+        stitch[name] = {
+            "shape": [72, Wk, Nk, ix.shape[1]],
+            "layout": "records" if pay else "rows",
+            "records_ms": timer(lambda: ogather.gather_layout(ogather.record_major(tab), ix, 72, records=True), 5),
+            "rows_ms": timer(lambda: ogather.gather_layout(tab, ix, 72, records=False), 5),
+            "max_abs_err": max_abs_err(ogather.gather_u32(tab, ix), ogather.gather_u32_ref(tab, ix)),
+        }
+    rows[0]["stitch_gathers"] = stitch
+    # point_op: the boundary stitch, local prefix + lane offset, (24, W, B-1)
     bl = omsm._split72(ogather.gather_u32(bsel, bpos_d))
     lo = omsm._split72(ogather.gather_u32(lane_tab, lidx_d))
     m = bl.x[0].numel()
+    # the calls --product-variants times under each variant build
+    variant_cases = {
+        "scan_sel": (lambda: ostream.scan_records_sel(rec, sel_d, W, T, L, S), 3, "kernels.cu"),
+        "scan_sel_split1": (lambda: ostream.scan_records_sel(rec, sel_d, W, T, L, S, split=1), 3, "kernels.cu"),
+        "point_op": (lambda: tuple(cuda_g1.jadd(bl, lo)), 5, "kernels.cu"),
+    }
     row(
         "point_op",
         "curdleproofs_tpu/ops/pallas_g1.py:130",
@@ -1118,6 +1248,8 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, co
         for name, (got_fn, want_fn) in calls.items():
             if lanes[name] != m:
                 continue
+            if name == "ladder_glv_w3":
+                variant_cases[name] = (lambda f=got_fn: tuple(f()), 3, "ladders.cu")
             got = row(
                 name,
                 replaces[name],
@@ -1141,15 +1273,131 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, co
         }
     )
     emit({"kernels": rows})
+    sweep_bad = [k for k, v in sweep.items() if not v["totals_sample_equal"]]
+    if sweep_bad:
+        fail(f"scan_sel at splits {sweep_bad} disagrees with the default split as points")
     if not all(oracle.values()):
         fail(f"ladders disagree with the discrete-log oracle at the main path's shapes: {oracle}")
     bad = [r["name"] for r in rows if r["max_abs_err"] != 0]
+    bad += [f"gather_u32[{k}]" for k, v in stitch.items() if v["max_abs_err"] != 0]
+    bad += [f"gather_u32[n={k}]" for k, v in layout_probe.items() if v["max_abs_err"] != 0]
     if bad:
         fail(f"kernels disagree with their plain versions at the main path's shapes: {bad}")
     if dev.type == "cuda":
         idle = [r["name"] for r in rows if r["launches"] == 0]
         if idle:
             fail(f"the main path never launched: {idle}")
+    if variants:
+        emit(product_variants(variant_cases))
+
+
+# Build-time variants of the Montgomery product (csrc/fq.cuh) and of scan_sel's
+# register cap (csrc/kernels.cu), timed by --product-variants beside the
+# default build, "by_value"
+PRODUCT_VARIANTS = {
+    "by_value": (),
+    "by_reference": ("-DCURDLE_FQ_MUL_BY_REF",),
+    "inlined": ("-DCURDLE_FQ_MUL_INLINE",),
+    "scan_uncapped": ("-DCURDLE_SCAN_MIN_BLOCKS=1",),
+}
+VARIANT_UNITS = ("kernels.cu", "ladders.cu")
+VARIANT_BUILD_LIMIT_S = 480
+
+
+def ptxas_stats(stderr: str) -> dict:
+    """Kernel -> what ptxas -v said of it: registers, stack frame (local
+    memory), spills."""
+    entry, stats = None, {}
+    for line in stderr.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and "stack frame" in line and entry not in stats:
+            stats[entry] = {"frame": line.strip()}
+        elif entry and "Used" in line and "registers" in line:
+            stats[entry]["used"] = line.split(":", 1)[1].strip()
+    return stats
+
+
+def product_variants(cases) -> dict:
+    """Build kernels.cu and ladders.cu once per PRODUCT_VARIANTS entry, all
+    compilers started together, and time each of `cases` (name -> (call
+    through the package's wrappers, launches to average, the unit of its
+    kernel)) under every build of its unit that compiled, bound in place of
+    the loaded one, in two rounds of turns. Each variant's outputs must equal
+    the loaded build's bit for bit."""
+    import ctypes
+    import tempfile
+    import types
+
+    report = {"phase": "product_variants", "builds_side_by_side": len(PRODUCT_VARIANTS) * len(VARIANT_UNITS)}
+    with tempfile.TemporaryDirectory() as tmp:
+        running = {}
+        t0 = time.perf_counter()
+        for v, flags in PRODUCT_VARIANTS.items():
+            for unit in VARIANT_UNITS:
+                so, log = f"{tmp}/{v}_{unit}.so", open(f"{tmp}/{v}_{unit}.log", "w+")
+                cmd = cuda_g1.nvcc_command(unit, so, extra=(*flags, "-Xptxas", "-v"))
+                running[(v, unit)] = (so, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT))
+        builds = {v: {"flags": list(f), "units": {}} for v, f in PRODUCT_VARIANTS.items()}
+        while any(p.poll() is None for _, _, p in running.values()):
+            if time.perf_counter() - t0 > VARIANT_BUILD_LIMIT_S:
+                break
+            time.sleep(0.25)
+            for (v, unit), (_so, _log, p) in running.items():
+                if p.poll() is not None and unit not in builds[v]["units"]:
+                    builds[v]["units"][unit] = {"nvcc_s": time.perf_counter() - t0}
+        for (v, unit), (so, log, p) in running.items():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+                builds[v]["units"][unit] = {"error": f"no library after {VARIANT_BUILD_LIMIT_S} s"}
+            else:
+                log.seek(0)
+                text = log.read()
+                entry = builds[v]["units"].setdefault(unit, {"nvcc_s": time.perf_counter() - t0})
+                if p.returncode:
+                    entry["error"] = f"nvcc exit {p.returncode}: {text[-2000:]}"
+                else:
+                    entry["ptxas"] = ptxas_stats(text)
+                    entry["so"] = so
+            log.close()
+        loaded = cuda_g1.lib()
+        bound = {}  # variant -> its bindings and the units that built
+        for v, b in builds.items():
+            ns, built = types.SimpleNamespace(**vars(loaded)), set()
+            for unit, u in b["units"].items():
+                if "so" not in u:
+                    continue
+                lib_ = ctypes.CDLL(u.pop("so"))
+                for name, argtypes in cuda_g1.ENTRY_POINTS[unit].items():
+                    fn = getattr(lib_, name)
+                    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+                    setattr(ns, name, fn)
+                built.add(unit)
+            bound[v] = (ns, built)
+        ms = {v: {c: [] for c, case in cases.items() if case[2] in built} for v, (_, built) in bound.items()}
+        err = {v: {} for v in bound}
+        want = {c: list(fn()) for c, (fn, _, _) in cases.items()}  # every case returns a tuple
+        try:
+            for rnd in range(2):
+                for v, (ns, _) in bound.items():
+                    cuda_g1._lib = ns
+                    for c in ms[v]:
+                        fn, iters, _ = cases[c]
+                        if rnd == 0:
+                            err[v][c] = max_abs_err(list(fn()), want[c])
+                        ms[v][c].append(cuda_ms(fn, iters))
+        finally:
+            cuda_g1._lib = loaded
+    for v, b in builds.items():
+        b["ms"] = ms[v]
+        b["max_abs_err_vs_loaded_build"] = err[v]
+    report["variants"] = builds
+    report["seconds"] = time.perf_counter() - t0
+    bad = [v for v, e in err.items() if any(e.values())]
+    if bad:
+        fail(f"product variants {bad} disagree with the loaded build")
+    return report
 
 
 def ptxas_report() -> int:
@@ -1166,15 +1414,7 @@ def ptxas_report() -> int:
         if proc.returncode != 0:
             print(proc.stderr, file=sys.stderr)
             return 1
-        entry, stats = None, {}
-        for line in proc.stderr.splitlines():
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1]
-            elif entry and "stack frame" in line and entry not in stats:
-                stats[entry] = {"frame": line.strip()}
-            elif entry and "Used" in line and "registers" in line:
-                stats[entry]["used"] = line.split(":", 1)[1].strip()
-        emit({"phase": "ptxas", "source": unit, "nvcc_s": seconds, "kernels": stats})
+        emit({"phase": "ptxas", "source": unit, "nvcc_s": seconds, "kernels": ptxas_stats(proc.stderr)})
     return 0
 
 
@@ -1190,6 +1430,11 @@ def main() -> int:
         "--ptxas",
         action="store_true",
         help="compile each source with -Xptxas -v, print registers and stack bytes per kernel, and stop",
+    )
+    ap.add_argument(
+        "--product-variants",
+        action="store_true",
+        help="after kernel_times, build and time the product's variants (csrc/fq.cuh) and scan_sel's register cap",
     )
     args = ap.parse_args()
     if args.ptxas:
@@ -1277,7 +1522,7 @@ def main() -> int:
 
     timed_phase(
         "kernel_times", phase_kernel_times, bases[:n_main], scalars[:n_main], dev, launches, by_phase,
-        n_ladder, n_vec_big, coef,
+        n_ladder, n_vec_big, coef, args.product_variants and dev.type == "cuda",
     )
     emit({"phase": "seconds", "per_phase": PHASE_SECONDS, "total": time.perf_counter() - T_START})
 

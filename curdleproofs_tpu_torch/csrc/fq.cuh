@@ -9,9 +9,9 @@
 // canonical residues, so results equal the plain PyTorch versions in
 // ops/modarith.py bit for bit.
 //
-// Right first: the multiply is a word-serial CIOS Montgomery product written
-// with 64-bit accumulation; its loops are fully unrolled so the word arrays
-// stay in registers inside it.
+// The Montgomery product is a word-serial CIOS written with 64-bit
+// accumulation, its loops fully unrolled so the word arrays stay in
+// registers; kernels call it out of line as fq_mul.
 #pragma once
 
 #include <stdint.h>
@@ -136,50 +136,70 @@ __device__ __forceinline__ Fq fq_sub(const Fq& a, const Fq& b) {
 // -a mod p. Results are canonical, so -0 is 0 and not p.
 __device__ __forceinline__ Fq fq_neg(const Fq& a) { return fq_sub(fq_zero(), a); }
 
+// One word of the CIOS Montgomery product, 64-bit accumulation:
+// t = (t + a * bi + m * p) / 2^32 with m chosen to clear the low word. With
+// a, b < p < 2^381 the running value stays below 2p, so 13 words hold every
+// intermediate.
+__device__ __forceinline__ void fq_mont_word(uint32_t (&t)[FQ_WORDS + 2], const Fq& a, uint32_t bi) {
+  uint64_t c = 0u;
+#pragma unroll
+  for (int j = 0; j < FQ_WORDS; ++j) {
+    const uint64_t s = (uint64_t)a.v[j] * (uint64_t)bi + (uint64_t)t[j] + c;
+    t[j] = (uint32_t)s;
+    c = s >> 32;
+  }
+  uint64_t s = (uint64_t)t[FQ_WORDS] + c;
+  t[FQ_WORDS] = (uint32_t)s;
+  t[FQ_WORDS + 1] = (uint32_t)(s >> 32);
+
+  const uint32_t m = t[0] * FQ_N0INV;
+  s = (uint64_t)m * (uint64_t)FQ_P[0] + (uint64_t)t[0];
+  c = s >> 32;
+#pragma unroll
+  for (int j = 1; j < FQ_WORDS; ++j) {
+    s = (uint64_t)m * (uint64_t)FQ_P[j] + (uint64_t)t[j] + c;
+    t[j - 1] = (uint32_t)s;
+    c = s >> 32;
+  }
+  s = (uint64_t)t[FQ_WORDS] + c;
+  t[FQ_WORDS - 1] = (uint32_t)s;
+  t[FQ_WORDS] = t[FQ_WORDS + 1] + (uint32_t)(s >> 32);
+}
+
 // Montgomery product a * b * 2^-384 mod p (CIOS, one word of b at a time).
-// With a, b < p < 2^381 the running value stays below 2p, so 13 words hold
-// every intermediate.
-//
-// Deliberately NOT inlined: a point formula calls it 7 to 16 times, and one
-// shared body keeps the kernels small and the build at seconds (fully
-// inlined, nvcc 12.8 took 47 s over the point kernels and crashed on the
-// scan kernels). The price is operands passed through local memory.
-__device__ __noinline__ Fq fq_mul(const Fq& a, const Fq& b) {
+__device__ __forceinline__ Fq fq_mont(const Fq& a, const Fq& b) {
   uint32_t t[FQ_WORDS + 2];
 #pragma unroll
   for (int i = 0; i < FQ_WORDS + 2; ++i) t[i] = 0u;
 #pragma unroll
-  for (int i = 0; i < FQ_WORDS; ++i) {
-    uint64_t c = 0u;
-#pragma unroll
-    for (int j = 0; j < FQ_WORDS; ++j) {
-      const uint64_t s = (uint64_t)a.v[j] * (uint64_t)b.v[i] + (uint64_t)t[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[FQ_WORDS] + c;
-    t[FQ_WORDS] = (uint32_t)s;
-    t[FQ_WORDS + 1] = (uint32_t)(s >> 32);
-
-    const uint32_t m = t[0] * FQ_N0INV;
-    s = (uint64_t)m * (uint64_t)FQ_P[0] + (uint64_t)t[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < FQ_WORDS; ++j) {
-      s = (uint64_t)m * (uint64_t)FQ_P[j] + (uint64_t)t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t[FQ_WORDS] + c;
-    t[FQ_WORDS - 1] = (uint32_t)s;
-    t[FQ_WORDS] = t[FQ_WORDS + 1] + (uint32_t)(s >> 32);
-  }
+  for (int i = 0; i < FQ_WORDS; ++i) fq_mont_word(t, a, b.v[i]);
   // t < 2p < 2^384, so t[12] == 0 here
   Fq r;
 #pragma unroll
   for (int i = 0; i < FQ_WORDS; ++i) r.v[i] = t[i];
   return fq_reduce_once(r);
 }
+
+// The product every kernel calls: out of line (a point formula calls it 7
+// to 16 times, and one shared body keeps a kernel's loop small and its build
+// at seconds), operands by value, so a call passes them in registers and not
+// through local memory. Two build-time variants exist only to be measured
+// against it (chip_smoke.py --product-variants, figures in PERF.md):
+// CURDLE_FQ_MUL_BY_REF takes the operands by reference (on an H100 up to a
+// third slower, the capped scan most), CURDLE_FQ_MUL_INLINE inlines the
+// product at every call (nvcc 12.8 crashes on kernels.cu; ladders.cu builds
+// in 7 to 8x the seconds and its ladder runs 2.3x slower).
+#if defined(CURDLE_FQ_MUL_INLINE)
+#define CURDLE_FQ_MUL_LINKAGE __forceinline__
+#else
+#define CURDLE_FQ_MUL_LINKAGE __noinline__
+#endif
+
+#if defined(CURDLE_FQ_MUL_BY_REF)
+__device__ CURDLE_FQ_MUL_LINKAGE Fq fq_mul(const Fq& a, const Fq& b) { return fq_mont(a, b); }
+#else
+__device__ CURDLE_FQ_MUL_LINKAGE Fq fq_mul(Fq a, Fq b) { return fq_mont(a, b); }
+#endif
 
 __device__ __forceinline__ Fq fq_sqr(const Fq& a) { return fq_mul(a, a); }
 

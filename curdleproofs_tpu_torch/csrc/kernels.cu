@@ -20,107 +20,236 @@
 namespace curdle {
 
 // ---------------------------------------------------------------------------
-// scan_sel / scan_full: per (window, lane) running Jacobian prefix over T
-// sequential steps of one mixed add each.
+// scan_sel: per (window, lane) running Jacobian prefix over T sequential
+// steps of one no-doubling mixed add each, emitting only the prefixes the
+// host selected.
 //
-// Replaces ops/stream_scan.py::_build_scan_sel and ::_build_scan of the JAX
-// package, whose grid walked t in order with the running prefix in scratch
-// memory. Here one thread owns one (window, lane), loops over t itself and
-// keeps the running triple in registers. Bound by operations: each step is
-// ~11 Montgomery products of 300 32-bit multiplies and reads only 49 words.
-// A chunk offers just W * L threads, each a chain of T dependent adds, so
-// blocks are one warp wide to spread the chains over all SMs.
+// Replaces ops/stream_scan.py::_build_scan_sel of the JAX package, whose
+// grid walked t in order with the running prefix in scratch memory.
+//
+// Bound by operations: each step is 11 Montgomery products of 300 32-bit
+// multiplies and reads only 49 words. What held the first version back on
+// this card was latency, not the multiplier: one thread per (window, lane)
+// gave W * L = 5,120 threads (160 warps for 528 warp schedulers), each a
+// chain of T * 11 = 2,816 dependent products, with the product out of line
+// and its operands in local memory. So:
+//
+//  * Each lane's T steps are split into K sub-chains of T/K steps, which
+//    share a block (K a power of two dividing T, a kernel argument; K = 1 is
+//    the unsplit scan, bit for bit):
+//      A. each sub-chain sums its records from the identity;
+//      B. an inclusive Hillis-Steele scan over the K sums in shared memory,
+//         with the complete add, gives each sub-chain its offset (the sum of
+//         the sub-chains before it; none for the first);
+//      C. each sub-chain walks its steps again from its offset, so every
+//         prefix is the same point as in the unsplit scan, and emits the
+//         selected prefixes of the K steps in flight at once. The last
+//         sub-chain's end is the lane total; the flag ORs over A and C.
+//    The chain is 2T/K adds plus log2(K) complete adds long, and there are K
+//    times the threads; the price is twice the mixed adds.
+//  * The mixed add calls fq_mul, the product out of line with its operands
+//    in registers. No tensor cores: the work is exact 384-bit modular
+//    arithmetic with carries, which wgmma does not do.
+//  * Registers capped for occupancy: __launch_bounds__ asks for two blocks
+//    of SCAN_MAX_THREADS an SM, so at most 128 registers a thread and 16
+//    warps an SM. The kernel spills some 1.2 KB a thread under the cap and
+//    still ran 10 % faster at K = 16 on an H100 than uncapped (255
+//    registers, 8 warps an SM).
+//  chip_smoke.py --product-variants times this kernel uncapped
+//  (CURDLE_SCAN_MIN_BLOCKS = 1), with the product's operands by reference,
+//  and inlined (which crashed nvcc 12.8 on this file); PERF.md has the
+//  readings. A product on PTX carry chains and a prefetch of the next
+//  step's record were not measured in any committed form.
+//
+// What bounds it now: the products, some 1,500 instructions each, twice
+// over for the split. Replacing phase C's second walk by one complete add
+// per selected prefix halves the mixed adds, but those adds are sparse and
+// diverge across a warp, and measured slower (PERF.md).
+//
+// Blocks are LB lanes x K sub-chains, sub-chain-major, with LB >= 8 so a
+// record row load of a sub-chain covers whole 32-byte sectors; small blocks
+// spread the W * L * K threads evenly over the SMs.
 //
 // records (49, W*T*L): flat position w*T*L + t*L + l.
-// SEL:  sel (W*T, S) lane ids (outside [0, L) = empty slot)
-//       -> bsel (72, W, T*S) the fresh prefix of lane sel[w*T+t, s] at slot
-//       t*S + s, zero for an empty slot; flags (W,) OR-ed with 1 where the
-//       no-doubling add met p == q. The step's prefixes are staged through
-//       shared memory and written slot-major, so the stores coalesce and a
-//       lane named by several slots is written to each.
-// FULL: prefix (72, W, T*L) every prefix, with the complete add.
-// Both: totals (72, W, L) the lane's last prefix.
+// sel (W*T, S) lane ids (outside [0, L) = empty slot)
+//   -> bsel (72, W, T*S) the prefix of lane sel[w*T+t, s] after step t at slot
+//   t*S + s, zero for an empty slot; flags (W,) OR-ed with 1 where the
+//   no-doubling add met p == q; totals (72, W, L) the lane's last prefix.
+// The step's prefixes are staged through shared memory and written
+// slot-major, so the stores coalesce and a lane named by several slots is
+// written to each.
 // ---------------------------------------------------------------------------
 
-constexpr int SCAN_THREADS = 32;
 constexpr int JAC_WORDS = 3 * FQ_WORDS;
+constexpr int SCAN_MAX_THREADS = 256;
+#ifndef CURDLE_SCAN_MIN_BLOCKS
+#define CURDLE_SCAN_MIN_BLOCKS 2  // blocks of SCAN_MAX_THREADS an SM; 1 is a measured variant
+#endif
 
-template <bool SEL>
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_kernel(const uint32_t* __restrict__ rec, const int32_t* __restrict__ sel,
-            uint32_t* __restrict__ out, uint32_t* __restrict__ tot, int32_t* __restrict__ flags,
-            int W, int T, int L, int S) {
-  const int w = blockIdx.y;
-  const int lane0 = blockIdx.x * SCAN_THREADS;
+struct Rec {
+  Fq x, y;
+  bool inf;
+};
+
+__device__ __forceinline__ Rec rec_load(const uint32_t* __restrict__ r, size_t n_rec) {
+  Rec q;
+  q.x = fq_load(r, n_rec);
+  q.y = fq_load(r + 24 * n_rec, n_rec);
+  q.inf = r[48 * n_rec] != 0u;
+  return q;
+}
+
+__device__ __forceinline__ void jac_to_stage(uint32_t* stage, int bt, int slot, const Jac& p) {
+#pragma unroll
+  for (int k = 0; k < FQ_WORDS; ++k) {
+    stage[k * bt + slot] = p.x.v[k];
+    stage[(FQ_WORDS + k) * bt + slot] = p.y.v[k];
+    stage[(2 * FQ_WORDS + k) * bt + slot] = p.z.v[k];
+  }
+}
+
+__device__ __forceinline__ Jac jac_from_stage(const uint32_t* stage, int bt, int slot) {
+  Jac p;
+#pragma unroll
+  for (int k = 0; k < FQ_WORDS; ++k) {
+    p.x.v[k] = stage[k * bt + slot];
+    p.y.v[k] = stage[(FQ_WORDS + k) * bt + slot];
+    p.z.v[k] = stage[(2 * FQ_WORDS + k) * bt + slot];
+  }
+  return p;
+}
+
+__global__ void __launch_bounds__(SCAN_MAX_THREADS, CURDLE_SCAN_MIN_BLOCKS)
+scan_sel_kernel(const uint32_t* __restrict__ rec, const int32_t* __restrict__ sel,
+                uint32_t* __restrict__ out, uint32_t* __restrict__ tot, int32_t* __restrict__ flags,
+                int W, int T, int L, int S, int K, int LB) {
+  extern __shared__ uint32_t stage[];  // JAC_WORDS x (K * LB), word-major
+  const int bt = K * LB;
   const int tid = threadIdx.x;
-  const int lane = lane0 + tid;
+  const int sub = tid / LB;  // sub-chain k
+  const int w = blockIdx.y;
+  const int lane0 = blockIdx.x * LB;
+  const int lane = lane0 + tid % LB;
   const bool active = lane < L;
+  const int steps = T / K;
+  const int t0 = sub * steps;
   const size_t n_rec = (size_t)W * T * L;
   const size_t n_sel = (size_t)W * T * S;
-
-  __shared__ uint32_t stage[SEL ? JAC_WORDS * SCAN_THREADS : 1];
+  const uint32_t* base = rec + (size_t)w * T * L + lane;
 
   Jac acc = jac_zero();  // z == 0: the first add yields lift(q)
   bool flag = false;
 
+  // phase 0 = A (sums from the identity; skipped for K = 1), phase 1 = C
+  // (from the offsets, emitting); one loop body for both
 #pragma unroll 1
-  for (int t = 0; t < T; ++t) {
-    if (active) {
-      const size_t pos = (size_t)w * T * L + (size_t)t * L + lane;
-      const uint32_t* r = rec + pos;
-      const Fq qx = fq_load(r, n_rec);
-      const Fq qy = fq_load(r + 24 * n_rec, n_rec);
-      const bool qinf = r[48 * n_rec] != 0u;
-      Jac res;
-      flag |= jac_madd<!SEL>(res, acc, qx, qy, qinf);
-      acc = res;
-      if (!SEL) {
-        uint32_t* o = out + pos;
-        fq_store(o, n_rec, acc.x);
-        fq_store(o + 24 * n_rec, n_rec, acc.y);
-        fq_store(o + 48 * n_rec, n_rec, acc.z);
+  for (int phase = K > 1 ? 0 : 1; phase < 2; ++phase) {
+#pragma unroll 1
+    for (int u = 0; u < steps; ++u) {
+      if (active) {
+        const Rec q = rec_load(base + (size_t)(t0 + u) * L, n_rec);
+        Jac res;
+        flag |= jac_madd<false>(res, acc, q.x, q.y, q.inf);
+        acc = res;
+      }
+      if (phase == 1) {
+        jac_to_stage(stage, bt, tid, acc);
+        __syncthreads();
+        for (int f = tid; f < K * S; f += bt) {
+          const int k = f / S;
+          const int s = f - k * S;
+          const int t = k * steps + u;
+          const int ln = sel[((size_t)w * T + t) * S + s];
+          uint32_t* o = out + (size_t)w * T * S + (size_t)t * S + s;
+          const bool empty = ln < 0 || ln >= L;
+          if (!empty && ln >= lane0 && ln < lane0 + LB) {
+            const int src = k * LB + (ln - lane0);
+#pragma unroll 4
+            for (int r = 0; r < JAC_WORDS; ++r) {
+              const uint32_t word = stage[r * bt + src];
+              o[(size_t)(2 * r) * n_sel] = word & 0xffffu;
+              o[(size_t)(2 * r + 1) * n_sel] = word >> 16;
+            }
+          } else if (empty && blockIdx.x == 0) {
+#pragma unroll 4
+            for (int r = 0; r < 2 * JAC_WORDS; ++r) o[(size_t)r * n_sel] = 0u;
+          }
+        }
+        __syncthreads();
       }
     }
-    if (SEL) {
-      if (active) {
-#pragma unroll
-        for (int k = 0; k < FQ_WORDS; ++k) {
-          stage[k * SCAN_THREADS + tid] = acc.x.v[k];
-          stage[(FQ_WORDS + k) * SCAN_THREADS + tid] = acc.y.v[k];
-          stage[(2 * FQ_WORDS + k) * SCAN_THREADS + tid] = acc.z.v[k];
-        }
-      }
+    if (phase == 0 && K > 1) {
+      // B: inclusive scan over the K sums of each lane, p = the earlier sum
+      jac_to_stage(stage, bt, tid, acc);
       __syncthreads();
-      const int32_t* srow = sel + ((size_t)w * T + t) * S;
-      for (int s = tid; s < S; s += SCAN_THREADS) {
-        const int ln = srow[s];
-        uint32_t* o = out + (size_t)w * T * S + (size_t)t * S + s;
-        const bool empty = ln < 0 || ln >= L;
-        if (!empty && ln >= lane0 && ln < lane0 + SCAN_THREADS) {
-          const int src = ln - lane0;
-#pragma unroll 4
-          for (int k = 0; k < JAC_WORDS; ++k) {
-            const uint32_t word = stage[k * SCAN_THREADS + src];
-            o[(size_t)(2 * k) * n_sel] = word & 0xffffu;
-            o[(size_t)(2 * k + 1) * n_sel] = word >> 16;
-          }
-        } else if (empty && blockIdx.x == 0) {
-#pragma unroll 4
-          for (int k = 0; k < 2 * JAC_WORDS; ++k) o[(size_t)k * n_sel] = 0u;
-        }
+#pragma unroll 1
+      for (int d = 1; d < K; d *= 2) {
+        Jac mine = acc;
+        if (sub >= d) mine = jac_add<true>(jac_from_stage(stage, bt, tid - d * LB), acc);
+        __syncthreads();
+        acc = mine;
+        jac_to_stage(stage, bt, tid, acc);
+        __syncthreads();
       }
+      // C starts from the offset: the identity for the first sub-chain
+      acc = sub > 0 ? jac_from_stage(stage, bt, tid - LB) : jac_zero();
       __syncthreads();
     }
   }
 
   if (active) {
-    const size_t n_tot = (size_t)W * L;
-    uint32_t* o = tot + (size_t)w * L + lane;
-    fq_store(o, n_tot, acc.x);
-    fq_store(o + 24 * n_tot, n_tot, acc.y);
-    fq_store(o + 48 * n_tot, n_tot, acc.z);
-    if (SEL && flag) atomicOr(&flags[w], 1);
+    if (sub == K - 1) {
+      const size_t n_tot = (size_t)W * L;
+      uint32_t* o = tot + (size_t)w * L + lane;
+      fq_store(o, n_tot, acc.x);
+      fq_store(o + 24 * n_tot, n_tot, acc.y);
+      fq_store(o + 48 * n_tot, n_tot, acc.z);
+    }
+    if (flag) atomicOr(&flags[w], 1);
   }
+}
+
+// ---------------------------------------------------------------------------
+// scan_full: the same scan with the complete mixed add, every prefix
+// written; the redo path of scan_sel. Replaces ops/stream_scan.py::
+// _build_scan of the JAX package. Still the first design: one thread per
+// (window, lane) walks all T steps, one-warp blocks, the out-of-line
+// product.
+//
+// records (49, W*T*L) -> prefix (72, W, T*L) every prefix, totals (72, W, L).
+// ---------------------------------------------------------------------------
+
+constexpr int SCAN_FULL_THREADS = 32;
+
+__global__ void __launch_bounds__(SCAN_FULL_THREADS)
+scan_full_kernel(const uint32_t* __restrict__ rec, uint32_t* __restrict__ out,
+                 uint32_t* __restrict__ tot, int W, int T, int L) {
+  const int w = blockIdx.y;
+  const int lane = blockIdx.x * SCAN_FULL_THREADS + threadIdx.x;
+  if (lane >= L) return;
+  const size_t n_rec = (size_t)W * T * L;
+
+  Jac acc = jac_zero();  // z == 0: the first add yields lift(q)
+#pragma unroll 1
+  for (int t = 0; t < T; ++t) {
+    const size_t pos = (size_t)w * T * L + (size_t)t * L + lane;
+    const uint32_t* r = rec + pos;
+    const Fq qx = fq_load(r, n_rec);
+    const Fq qy = fq_load(r + 24 * n_rec, n_rec);
+    const bool qinf = r[48 * n_rec] != 0u;
+    Jac res;
+    jac_madd<true>(res, acc, qx, qy, qinf);
+    acc = res;
+    uint32_t* o = out + pos;
+    fq_store(o, n_rec, acc.x);
+    fq_store(o + 24 * n_rec, n_rec, acc.y);
+    fq_store(o + 48 * n_rec, n_rec, acc.z);
+  }
+  const size_t n_tot = (size_t)W * L;
+  uint32_t* o = tot + (size_t)w * L + lane;
+  fq_store(o, n_tot, acc.x);
+  fq_store(o + 24 * n_tot, n_tot, acc.y);
+  fq_store(o + 48 * n_tot, n_tot, acc.z);
 }
 
 // ---------------------------------------------------------------------------
@@ -129,28 +258,79 @@ scan_kernel(const uint32_t* __restrict__ rec, const int32_t* __restrict__ sel,
 //
 // Replaces ops/gather.py::_build and ::_build_wlead of the JAX package (a
 // one-hot matrix product there, because that machine has no fast lane
-// gather; a GPU thread simply loads from the address). Bound by bytes: every
-// output word is one load and one store. One thread per (w, j) reads its
-// index once and walks the R rows; stores coalesce over j, loads are as
-// scattered as the indices.
+// gather; a GPU thread simply loads from the address). One kernel serves a
+// table shared by all windows (Wt = 1) and one table a window (Wt = W).
+//
+// Bound by bytes: every output word is one load and one store. In the
+// package's limb-major layout (R, Wt, N) the R words of one record lie a
+// table row apart, so each 4-byte load costs a whole 32-byte sector: eight
+// times the bytes needed, which made the first version slower than
+// torch.gather on the sorted-order gather of all n records. Two layouts,
+// chosen by the wrapper from the shapes:
+//  * RECORDS: the wrapper first copies the table to (Wt, N, RP): record i of
+//    window w is RP words (R padded to whole 32-byte sectors; 56 for the
+//    49-word point records) at one aligned address. A block takes GATHER_J
+//    outputs of one window: its threads fetch the records with 16-byte
+//    read-only vector loads, neighbouring threads on neighbouring chunks of
+//    one record, into a shared-memory tile (R x GATHER_J, padded against
+//    bank conflicts), and write each output row as one coalesced run over
+//    j. Pays where most records are fetched (the copy reads the table once).
+//  * limb-major, in place: one thread a j walks the R rows; stores coalesce,
+//    loads cost a sector each. Pays where few records of a large table are
+//    fetched (the stitch's boundary gathers), as the copy would cost more.
+// No TMA: it copies tiles and has no row-gather mode, so plain loads are the
+// tool.
 // ---------------------------------------------------------------------------
 
 constexpr int GATHER_THREADS = 256;
+constexpr int GATHER_J = 64;  // of 64, 128 and 256, the fastest on an H100
+constexpr int GATHER_TILE = GATHER_J + 1;  // row pitch of the tile, in words
 
+template <bool RECORDS>
 __global__ void __launch_bounds__(GATHER_THREADS)
 gather_kernel(const uint32_t* __restrict__ table, const int32_t* __restrict__ idx,
-              uint32_t* __restrict__ out, int R, int W, int N, int M) {
-  const int j = blockIdx.x * GATHER_THREADS + threadIdx.x;
+              uint32_t* __restrict__ out, int R, int RP, int Wt, int W, int N, int M) {
   const int w = blockIdx.y;
-  if (j >= M) return;
-  const int i = idx[(size_t)w * M + j];
-  const bool hit = i >= 0 && i < N;
-  const size_t t_stride = (size_t)W * N;
+  const size_t tw = Wt == 1 ? 0 : (size_t)w;
   const size_t o_stride = (size_t)W * M;
-  const uint32_t* src = table + (size_t)w * N + (hit ? i : 0);
-  uint32_t* dst = out + (size_t)w * M + j;
+  if (!RECORDS) {
+    const int j = blockIdx.x * GATHER_THREADS + threadIdx.x;
+    if (j >= M) return;
+    const int i = idx[(size_t)w * M + j];
+    const bool hit = i >= 0 && i < N;
+    const size_t t_stride = (size_t)Wt * N;
+    const uint32_t* src = table + tw * N + (hit ? i : 0);
+    uint32_t* dst = out + (size_t)w * M + j;
 #pragma unroll 8
-  for (int r = 0; r < R; ++r) dst[(size_t)r * o_stride] = hit ? src[(size_t)r * t_stride] : 0u;
+    for (int r = 0; r < R; ++r) dst[(size_t)r * o_stride] = hit ? src[(size_t)r * t_stride] : 0u;
+    return;
+  }
+  extern __shared__ uint32_t tile[];  // R x GATHER_TILE
+  const uint4* recs = reinterpret_cast<const uint4*>(table);
+  const int j0 = blockIdx.x * GATHER_J;
+  const int chunks = RP / 4;  // uint4 per record
+  for (int f = threadIdx.x; f < GATHER_J * chunks; f += GATHER_THREADS) {
+    const int jj = f / chunks;
+    const int c = f - jj * chunks;
+    const int j = j0 + jj;
+    if (j >= M) continue;
+    const int i = idx[(size_t)w * M + j];
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (i >= 0 && i < N) v = __ldg(recs + (tw * N + i) * chunks + c);
+    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 4 * c + e;
+      if (r < R) tile[r * GATHER_TILE + jj] = words[e];
+    }
+  }
+  __syncthreads();
+  const int mj = min(GATHER_J, M - j0);
+  for (int f = threadIdx.x; f < R * GATHER_J; f += GATHER_THREADS) {
+    const int r = f / GATHER_J;
+    const int jj = f - r * GATHER_J;
+    if (jj < mj) out[(size_t)r * o_stride + (size_t)w * M + j0 + jj] = tile[r * GATHER_TILE + jj];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -207,31 +387,52 @@ using namespace curdle;
 extern "C" {
 
 // records (49, W*T*L), sel (W*T, S) -> bsel (72, W, T*S), totals (72, W, L),
-// flags (W,) which the caller has zeroed.
+// flags (W,) which the caller has zeroed. K sub-chains a lane: a power of two
+// dividing T, at most SCAN_MAX_THREADS / 8.
 int curdle_scan_sel(const void* rec, const void* sel, void* bsel, void* tot, void* flags, int W,
-                    int T, int L, int S, void* stream) {
-  dim3 grid((L + SCAN_THREADS - 1) / SCAN_THREADS, W);
-  scan_kernel<true><<<grid, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
+                    int T, int L, int S, int K, void* stream) {
+  if (K < 1 || (K & (K - 1)) || T % K || 8 * K > SCAN_MAX_THREADS) return (int)cudaErrorInvalidValue;
+  const int LB = K >= 8 ? 8 : 64 / K > 32 ? 32 : 64 / K;  // lanes a block: 32, 32, 16, 8, 8, ...
+  const int bt = K * LB;
+  dim3 grid((L + LB - 1) / LB, W);
+  const size_t smem = (size_t)JAC_WORDS * bt * sizeof(uint32_t);
+  scan_sel_kernel<<<grid, bt, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)rec, (const int32_t*)sel, (uint32_t*)bsel, (uint32_t*)tot, (int32_t*)flags,
-      W, T, L, S);
+      W, T, L, S, K, LB);
   return (int)cudaGetLastError();
 }
 
 // records (49, W*T*L) -> prefix (72, W, T*L), totals (72, W, L).
 int curdle_scan_full(const void* rec, void* prefix, void* tot, int W, int T, int L,
                      void* stream) {
-  dim3 grid((L + SCAN_THREADS - 1) / SCAN_THREADS, W);
-  scan_kernel<false><<<grid, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)rec, nullptr, (uint32_t*)prefix, (uint32_t*)tot, nullptr, W, T, L, 0);
+  dim3 grid((L + SCAN_FULL_THREADS - 1) / SCAN_FULL_THREADS, W);
+  scan_full_kernel<<<grid, SCAN_FULL_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)rec, (uint32_t*)prefix, (uint32_t*)tot, W, T, L);
   return (int)cudaGetLastError();
 }
 
-// table (R, W, N), idx (W, M) -> out (R, W, M).
-int curdle_gather_u32(const void* table, const void* idx, void* out, int R, int W, int N, int M,
-                      void* stream) {
-  dim3 grid((M + GATHER_THREADS - 1) / GATHER_THREADS, W);
-  gather_kernel<<<grid, GATHER_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)table, (const int32_t*)idx, (uint32_t*)out, R, W, N, M);
+// records != 0: table (Wt, N, RP) record-major, RP a multiple of 4 and >= R;
+// records == 0: table (R, Wt, N). Wt is 1 or W; idx (W, M) -> out (R, W, M).
+int curdle_gather_u32(const void* table, const void* idx, void* out, int R, int RP, int Wt, int W,
+                      int N, int M, int records, void* stream) {
+  if (Wt != 1 && Wt != W) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!records) {
+    dim3 grid((M + GATHER_THREADS - 1) / GATHER_THREADS, W);
+    gather_kernel<false><<<grid, GATHER_THREADS, 0, st>>>(
+        (const uint32_t*)table, (const int32_t*)idx, (uint32_t*)out, R, RP, Wt, W, N, M);
+    return (int)cudaGetLastError();
+  }
+  if (RP % 4 || RP < R) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)R * GATHER_TILE * sizeof(uint32_t);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gather_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((M + GATHER_J - 1) / GATHER_J, W);
+  gather_kernel<true><<<grid, GATHER_THREADS, smem, st>>>(
+      (const uint32_t*)table, (const int32_t*)idx, (uint32_t*)out, R, RP, Wt, W, N, M);
   return (int)cudaGetLastError();
 }
 

@@ -62,9 +62,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # source -> its C entry points and their argument types (all return int)
 ENTRY_POINTS = {
     "kernels.cu": {
-        "curdle_scan_sel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "curdle_scan_sel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "curdle_scan_full": [_P, _P, _P, _I, _I, _I, _P],
-        "curdle_gather_u32": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "curdle_gather_u32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "curdle_point_op": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     },
     "ladders.cu": {

@@ -13,20 +13,30 @@ package's `ops.stream_scan` (`scan_records`, `scan_records_sel`; kernels
     the L lanes (ops.scan._hs_scan) turns them into lane offsets, and only
     bucket-boundary prefixes are ever stitched (ops.msm).
 
-Two kernels (`scan_kernel<SEL>` in ../csrc/kernels.cu), both bound by
-operations — about 11 Montgomery products per record against 49 words read:
+Two kernels (../csrc/kernels.cu), both bound by operations — about 11
+Montgomery products per record against 49 words read:
 
-  * `scan_records` (`scan_full`): the complete mixed add, every prefix
-    written.
-  * `scan_records_sel` (`scan_sel`): the mixed add WITHOUT the doubling
-    branch plus a per-window flag, and only the prefixes the host selected
-    per step are written. If a flag fires, the caller redoes the work on the
-    complete scan: exactness is kept, adversarial inputs only cost time.
+  * `scan_records` (`scan_full_kernel`): the complete mixed add, every
+    prefix written.
+  * `scan_records_sel` (`scan_sel_kernel`): the mixed add WITHOUT the
+    doubling branch plus a per-window flag, and only the prefixes the host
+    selected per step are written. If a flag fires, the caller redoes the
+    work on the complete scan: exactness is kept, adversarial inputs only
+    cost time. Each lane's T steps run as `split` = K sub-chains of T/K steps
+    (sums from the identity, a Hillis-Steele scan over the K sums with the
+    complete add, then each sub-chain again from its offset), which gives
+    the card K times the threads on chains about 2T/K adds long. The
+    prefixes and totals are the same points at every K, and at K = 1 the
+    same Jacobian triples as the JAX package's scan; at K > 1 they are other
+    representatives of those points.
 
 The plain PyTorch versions (`scan_records_ref`, `scan_records_sel_ref`) loop
-over t with the formulas of ops.g1 and are what CPU tensors get.
+over t with the formulas of ops.g1, in the kernels' order, and are what CPU
+tensors get.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -35,6 +45,11 @@ from curdleproofs_tpu_torch.ops import g1 as og
 
 # lane width override for tests and tuning (0 = default)
 _LANES = 0
+
+# Sub-chains a lane of `scan_records_sel` by default, on the CPU as on the
+# card: the fastest of K in {1, 2, 4, 8, 16, 32} on an H100 at the n = 2^16
+# shapes (chip_smoke.py, `split_sweep`).
+SCAN_SPLIT = 16
 
 
 def pick_lanes(n: int) -> int:
@@ -100,49 +115,90 @@ def scan_records(records: torch.Tensor, W: int, T: int, L: int):
     return prefix, totals
 
 
+def split_steps(T: int, split: Optional[int] = None) -> int:
+    """The sub-chains a lane gets: `split` (default SCAN_SPLIT, a power of
+    two up to 32, the kernel's limit), lowered to the largest power of two
+    that divides T."""
+    k = SCAN_SPLIT if split is None else split
+    if k < 1 or k & (k - 1) or k > 32:
+        raise ValueError(f"split must be a power of two from 1 to 32, got {k}")
+    return min(k, T & -T)
+
+
 def scan_records_sel_ref(
-    records: torch.Tensor, sel: torch.Tensor, W: int, T: int, L: int, S: int
+    records: torch.Tensor, sel: torch.Tensor, W: int, T: int, L: int, S: int,
+    split: Optional[int] = None,
 ):
     """Plain PyTorch version of `scan_records_sel`: the flagged no-doubling
-    scan, then the selection read off the full prefix."""
+    scan in K sub-chains, with the formulas and the order of the kernel, then
+    the selection read off the full prefix."""
     _check_records(records, W, T, L)
+    K = split_steps(T, split)
+    steps = T // K
     x, y, infv = _split(records, W, T, L)
-    acc = og.jinf((W, L), device=records.device)
-    flag = torch.zeros((W, L), dtype=torch.bool, device=records.device)
-    steps = []
-    for t in range(T):
-        acc, dbl = og._jmadd_formulas_flagged(
-            acc, og.APoints(x[:, :, t], y[:, :, t], infv[:, t])
-        )
-        flag |= dbl
-        steps.append(torch.cat([acc.x, acc.y, acc.z], dim=0))
-    pref = _stack_prefix(steps, W, T, L)
+    # sub-chain k of a lane holds steps k*steps .. (k+1)*steps - 1
+    x = x.reshape(24, W, K, steps, L)
+    y = y.reshape(24, W, K, steps, L)
+    infv = infv.reshape(W, K, steps, L)
+    dev = records.device
+    flag = torch.zeros((W, K, L), dtype=torch.bool, device=dev)
+
+    def walk(acc, keep):
+        nonlocal flag
+        for u in range(steps):
+            acc, dbl = og._jmadd_formulas_flagged(
+                acc, og.APoints(x[:, :, :, u], y[:, :, :, u], infv[:, :, u])
+            )
+            flag |= dbl
+            if keep is not None:
+                keep.append(torch.cat([acc.x, acc.y, acc.z], dim=0))
+        return acc
+
+    offset = og.jinf((W, K, L), device=dev)
+    if K > 1:
+        # A: each sub-chain's sum; B: inclusive scan over the K sums, p the
+        # earlier one, then shifted by one for each sub-chain's offset
+        acc = walk(og.jinf((W, K, L), device=dev), None)
+        d = 1
+        while d < K:
+            earlier = og.JPoints(*(a[:, :, : K - d] for a in acc))
+            later = og.JPoints(*(a[:, :, d:] for a in acc))
+            summed = og._jadd_formulas(earlier, later)
+            acc = og.JPoints(*(torch.cat([a[:, :, :d], b], dim=2) for a, b in zip(acc, summed)))
+            d *= 2
+        offset = og.JPoints(*(torch.cat([o[:, :, :1], a[:, :, : K - 1]], dim=2) for o, a in zip(offset, acc)))
+    steps_out = []
+    walk(offset, steps_out)  # C: every prefix, step t = k*steps + u
+    pref = torch.stack(steps_out, dim=3).reshape(72, W, T * L)
+    totals = steps_out[-1][:, :, K - 1]
     lane = sel.reshape(W, T, S).to(torch.int64)
     hit = (lane >= 0) & (lane < L)
-    pos = torch.arange(T, device=records.device).reshape(1, T, 1) * L + lane
+    pos = torch.arange(T, device=dev).reshape(1, T, 1) * L + lane
     pos = torch.where(hit, pos, torch.zeros_like(pos)).reshape(W, T * S)
     bs = torch.take_along_dim(pref, pos.unsqueeze(0).expand(72, -1, -1), dim=-1)
     bs = torch.where(hit.reshape(1, W, T * S), bs, torch.zeros_like(bs))
-    return bs, steps[-1], flag.any(dim=-1).to(torch.int32)
+    return bs, totals, flag.any(dim=-1).any(dim=-1).to(torch.int32)
 
 
 def scan_records_sel(
-    records: torch.Tensor, sel: torch.Tensor, W: int, T: int, L: int, S: int
+    records: torch.Tensor, sel: torch.Tensor, W: int, T: int, L: int, S: int,
+    split: Optional[int] = None,
 ):
     """Streaming scan emitting only host-selected boundary prefixes.
 
     records (49, W*T*L) int32 as in scan_records; sel (W*T, S) int32 lane ids
-    (outside [0, L), e.g. -1 = empty slot, emits the zero triple = identity).
-    Returns (bsel (72, W, T*S) selected prefixes, lane_totals (72, W, L),
-    dbl_flags (W,) int32 — nonzero where the no-doubling mixed add hit the
-    p == q case and the window result is INVALID; the caller must redo on
-    the doubling-safe path).
+    (outside [0, L), e.g. -1 = empty slot, emits the zero triple = identity);
+    split: sub-chains a lane (`split_steps`). Returns (bsel (72, W, T*S)
+    selected prefixes, lane_totals (72, W, L), dbl_flags (W,) int32 — nonzero
+    where the no-doubling mixed add hit the p == q case and the window result
+    is INVALID; the caller must redo on the doubling-safe path).
 
     The CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
     if tuple(sel.shape) != (W * T, S):
         raise ValueError(f"sel: expected shape {(W * T, S)}, got {tuple(sel.shape)}")
+    K = split_steps(T, split)
     if not records.is_cuda:
-        return scan_records_sel_ref(records, sel, W, T, L, S)
+        return scan_records_sel_ref(records, sel, W, T, L, S, K)
     cuda_g1.check_tensor("scan_records_sel records", records, (49, W * T * L))
     cuda_g1.check_tensor("scan_records_sel sel", sel, (W * T, S))
     dev = records.device
@@ -152,7 +208,7 @@ def scan_records_sel(
     with torch.cuda.device(dev):
         rc = cuda_g1.lib().curdle_scan_sel(
             records.data_ptr(), sel.data_ptr(), bsel.data_ptr(), totals.data_ptr(),
-            flags.data_ptr(), W, T, L, S, cuda_g1.stream_ptr(),
+            flags.data_ptr(), W, T, L, S, K, cuda_g1.stream_ptr(),
         )
     cuda_g1.check_launch("scan_sel", rc)
     cuda_g1.launch_counts["scan_sel"] += 1

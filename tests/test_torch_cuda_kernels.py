@@ -60,7 +60,9 @@ def test_gather(card):
     rng = np.random.default_rng(1)
     table = torch.from_numpy(rng.integers(0, 1 << 16, (49, 3, 100)).astype(np.int32)).to(card)
     idx = torch.from_numpy(rng.integers(-2, 102, (3, 77)).astype(np.int32)).to(card)
+    before = cuda_g1.launch_counts["gather_u32"]
     assert torch.equal(ogather.gather_u32(table, idx), ogather.gather_u32_ref(table, idx))
+    assert cuda_g1.launch_counts["gather_u32"] == before + 1
     with pytest.raises(ValueError):
         ogather.gather_u32(table.transpose(1, 2), idx)  # shape mismatch, non-contiguous
 
@@ -110,6 +112,46 @@ def test_scans(points, card):
     got = ostream.scan_records_sel(rec, sel, W, T, L, S)
     assert _equal(got, ostream.scan_records_sel_ref(rec, sel, W, T, L, S))
     assert got[2].tolist()[0] == 1
+
+
+# R, W, N, M, shared: point records, a ragged M over several blocks, the
+# Jacobian triples of the stitch, one-word records; in both table layouts
+@pytest.mark.parametrize("layout", ["records", "rows"])
+@pytest.mark.parametrize("R,W,N,M,shared", [(49, 3, 100, 300, True), (49, 2, 1000, 129, False), (72, 4, 64, 1000, False), (1, 1, 7, 5, False)])
+def test_gather_layouts(card, monkeypatch, layout, R, W, N, M, shared):
+    monkeypatch.setattr(ogather, "records_pay", lambda *a: layout == "records")
+    rng = np.random.default_rng(R * M)
+    table = torch.from_numpy(rng.integers(0, 1 << 31, (R, 1 if shared else W, N)).astype(np.int32)).to(card)
+    idx = torch.from_numpy(rng.integers(-3, N + 3, (W, M)).astype(np.int32)).to(card)
+    before = cuda_g1.launch_counts["gather_u32"]
+    got = ogather.gather_u32_shared(table[:, 0], idx) if shared else ogather.gather_u32(table, idx)
+    assert cuda_g1.launch_counts["gather_u32"] == before + 1
+    assert torch.equal(got, ogather.gather_u32_ref(table.expand(R, W, N), idx))
+
+
+@pytest.mark.parametrize("split", [1, 2, 4])
+def test_scan_sel_split(points, card, split):
+    """The split scan against its plain version at the same split, bit for
+    bit, with a forced p == q in window 0; and as points against split 1."""
+    ap, _ = points
+    W, T, L, S = 2, 8, 24, 8
+    rec1 = torch.cat([ap.x, ap.y, ap.inf.unsqueeze(0).to(torch.int32)], dim=0)
+    rec = rec1.repeat(1, 2)[:, : W * T * L].clone()
+    rec[:, 1 * L + 2] = rec[:, 0 * L + 2]  # window 0, lane 2: p == q at step 1
+    rec[48, T * L + 5 * L + 3] = 1  # an infinity record in window 1
+    rec = rec.contiguous()
+    sel = torch.from_numpy(np.random.default_rng(6).integers(-1, L + 1, (W * T, S)).astype(np.int32)).to(card)
+    before = cuda_g1.launch_counts["scan_sel"]
+    got = ostream.scan_records_sel(rec, sel, W, T, L, S, split=split)
+    assert cuda_g1.launch_counts["scan_sel"] == before + 1
+    assert _equal(got, ostream.scan_records_sel_ref(rec, sel, W, T, L, S, split=split))
+    assert got[2].tolist() == [1, 0]
+    one = ostream.scan_records_sel(rec, sel, W, T, L, S, split=1)
+    # window 1 never meets p == q, so its points are those of the unsplit scan
+    for a, b in ((got[0][:, 1], one[0][:, 1]), (got[1][:, 1], one[1][:, 1])):
+        assert og.jpoints_to_host(og.JPoints(a[:24], a[24:48], a[48:])) == og.jpoints_to_host(
+            og.JPoints(b[:24], b[24:48], b[48:])
+        )
 
 
 @pytest.fixture(scope="module")

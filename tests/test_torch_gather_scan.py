@@ -85,7 +85,7 @@ def test_scan_records_sel_matches_jax_with_forced_collision(records):
     rng = np.random.default_rng(9)
     sel = rng.integers(-1, L, (W * T, S)).astype(np.int32)
     sel[0, :3] = [7, 7, -1]  # a repeated lane and an empty slot
-    bsel, tot, flags = tstream.scan_records_sel(rec, from_reference(sel, "cpu"), W, T, L, S)
+    bsel, tot, flags = tstream.scan_records_sel(rec, from_reference(sel, "cpu"), W, T, L, S, split=1)
     jb, jt, jf = jax.jit(jstream.scan_records_sel, static_argnums=(2, 3, 4, 5))(
         jrec, jnp.asarray(sel), W, T, L, S
     )
@@ -101,7 +101,7 @@ def test_scan_sel_out_of_range_lane_is_empty(records):
     sel = np.full((W * T, S), -1, np.int32)
     sel[:, 0] = L  # past the last lane: an empty slot, as in the kernel
     sel[:, 1] = 4
-    bsel, _, _ = tstream.scan_records_sel(rec, from_reference(sel, "cpu"), W, T, L, S)
+    bsel, _, _ = tstream.scan_records_sel(rec, from_reference(sel, "cpu"), W, T, L, S, split=1)
     pref, _ = tstream.scan_records(rec, W, T, L)
     got = to_reference(bsel).reshape(72, W, T, S)
     assert not got[..., 0].any()

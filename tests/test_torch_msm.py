@@ -20,6 +20,7 @@ from curdleproofs_tpu_torch.fields import FR_MOD, Fr
 from curdleproofs_tpu_torch.ops import g1 as tog
 from curdleproofs_tpu_torch.ops import glv as tglv
 from curdleproofs_tpu_torch.ops import msm as tmsm
+from curdleproofs_tpu_torch.ops import stream_scan as tstream
 from curdleproofs_tpu_torch.ops.fieldspec import from_reference, ints_to_limbs, to_reference
 
 # The lanes here are few: intra-op threads add nothing but spin-waiting, which
@@ -200,9 +201,11 @@ def test_stream_window_partials_equals_jax(body_inputs):
         assert _same(t, j)
 
 
-def test_sel_body_equals_jax_routed_sel(body_inputs):
+def test_sel_body_equals_jax_routed_sel(body_inputs, monkeypatch):
     """The port's sel body against the JAX package's routed sel body fed the
-    route factorisation of the same sort order: total, bsums and flags."""
+    route factorisation of the same sort order: total, bsums and flags. The
+    unsplit scan, whose Jacobian triples are the JAX package's."""
+    monkeypatch.setattr(tstream, "SCAN_SPLIT", 1)
     b = body_inputs
     total, bsums, flags = tmsm._stream_window_partials_sel(
         b["tpacked"],
@@ -224,3 +227,27 @@ def test_sel_body_equals_jax_routed_sel(body_inputs):
     for t, j in zip(tuple(total) + tuple(bsums), tuple(jtotal) + tuple(jbsums)):
         assert _same(t, j)
     assert to_reference(flags).tolist() == np.asarray(jflags).tolist()
+
+
+def test_sel_body_split_scan_equals_jax_as_points(body_inputs, monkeypatch):
+    """The sel body with the scan split into 4 sub-chains a lane: total and
+    bsums are other Jacobian triples of the same points as the JAX package's
+    unsplit body, and the same window flags the base these inputs repeat."""
+    monkeypatch.setattr(tstream, "SCAN_SPLIT", 4)
+    b = body_inputs
+    total, bsums, flags = tmsm._stream_window_partials_sel(
+        b["tpacked"], from_reference(b["order_cm"], "cpu"), from_reference(b["sel"], "cpu"),
+        from_reference(b["bpos"], "cpu"), from_reference(b["lidx"], "cpu"), b["T"], b["L"], b["S"],
+    )
+    i1, i2, i3 = jroute.decompose(*jroute.pick_rc(b["n2"], 8), b["order_cm"])
+    jtotal, jbsums, jflags = jmsm._stream_window_partials_routed_sel(
+        b["jpacked"], jnp.asarray(i1), jnp.asarray(i2), jnp.asarray(i3),
+        jnp.asarray(b["sel"]), jnp.asarray(b["bpos"]), jnp.asarray(b["lidx"]),
+        b["T"], b["L"], b["S"],
+    )
+    for t, j in ((total, jtotal), (bsums, jbsums)):
+        want = tog.JPoints(*(from_reference(np.asarray(a), "cpu") for a in j))
+        assert tog.jpoints_to_host(tog.JPoints(*(a.reshape(24, -1) for a in t))) == tog.jpoints_to_host(
+            tog.JPoints(*(a.reshape(24, -1) for a in want))
+        )
+    assert to_reference(flags).tolist() == np.asarray(jflags).tolist() == [0, 0, 1]

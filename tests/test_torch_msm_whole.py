@@ -97,6 +97,7 @@ SEL_ON = dict(SEL_MIN_N=256, _LANES=32)
 WHOLE = {
     "edge_inputs_full_prefix": (lambda: _edge_inputs(100), 8, {}, "full"),
     "non_pow2_sel_scan": (lambda: _distinct_inputs(250), 9, SEL_ON, "sel"),
+    "split4_sel_scan": (lambda: _distinct_inputs(250), 9, dict(SEL_ON, SCAN_SPLIT=4), "sel"),
     "edge_inputs_sel_scan": (lambda: _edge_inputs(250), 9, SEL_ON, "sel, redo allowed"),
     "doubling_collision_redo": (lambda: _equal_inputs(256), 9, SEL_ON, "sel+redo"),
     "slot_overflow_full_prefix": (
@@ -114,8 +115,8 @@ def test_msm_stream_equals_jax_and_oracle(name, monkeypatch):
     make, c, settings, path = WHOLE[name]
     pts, scs = make()
     for k, v in settings.items():
-        if k == "_LANES":
-            monkeypatch.setattr(tstream, "_LANES", v)
+        if k in ("_LANES", "SCAN_SPLIT"):
+            monkeypatch.setattr(tstream, k, v)
         else:
             monkeypatch.setattr(tmsm, k, v)
     for k in ("STREAM_SPLIT", "STREAM_GLV"):

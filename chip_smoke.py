@@ -12,7 +12,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
   device     card name and power limit (nvidia-smi), kernel build time, the
              native host library's build time and OpenMP threads
   kernels    the nine kernels vs their plain versions at small shapes with
-             edge lanes (identity, P+P, P+(-P), a forced p == q collision in
+             edge lanes (point_op and ladder_w3 at every thread group G = 1,
+             2, 4; identity, P+P, P+(-P), a forced p == q collision in
              scan_sel at split 1 and at the default split, the two equal as
              points; empty and repeated selection slots, out-of-range gather
              indices, a ragged M, shared and per-window tables, both gather
@@ -57,21 +58,33 @@ Phases, each printing one JSON line; any failure exits non-zero:
              at the sorted-order gather of n/4 and n/2 (`layout_probe`), and the
              stitch's two gathers in both layouts; rowwise_gather per stage of the
              routed gather at the chunk shape the routed path launches,
-             beside torch.gather, and the transposes between the stages (the
-             same with all windows in one launch as an extra field). Launch counts are those of the eight main-path phases
-             above: set to 0 just before each, read just after it
+             beside torch.gather in five rounds of turns (medians), and the
+             transposes between the stages (the same with all windows in one
+             launch as an extra field); point_op at every width msm_2e16's
+             msm() launches it (recorded in that phase's counted call), each body at
+             every thread group in turns, bit-equal to plain, with CUDA-graph
+             device times, bounds, launches per msm() and the group the
+             wrapper picks (`group_sweep`); ladder_w3 alone at the two vector
+             widths at every group the same way. Launch counts are those of
+             the eight main-path phases above: set to 0 just before each,
+             read just after it
+  group_ab   the groups the wrappers pick against one thread a lane, in
+             turns: msm() at 2^16 (device span, wall) and the vector ops'
+             scalar_mul at both widths (device ms) and scale_points (wall)
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit. `--rehearse-cpu` walks the same control flow at
 a tiny size on the CPU with the plain versions, to find faults without a
 card; it prints no result and exits 2. `--product-variants` adds a phase
 after kernel_times: kernels.cu and ladders.cu built once per variant of the
-Montgomery product (operands by value, the default; by reference; inlined) and
-with scan_sel's registers not capped, eight compilers side by side, each
+Montgomery product (operands by value, the default; by reference; inlined)
+and with scan_sel's registers not capped, eight compilers side by side, each
 build's ptxas figures and nvcc seconds, and scan_sel (default split and split
-1), point_op and ladder_glv_w3 timed under every build that compiled, at the
-shapes above, bit-equal to the loaded build. `--ptxas` prints the default build's
-ptxas figures without a card.
+1), point_op (the picked group and group 1), ladder_glv_w3 and ladder_w3
+alone at both vector widths (picked group) timed under every build that
+compiled, at the shapes above, bit-equal to the loaded build. `--ptxas` prints the default build's
+ptxas figures (registers, stack, spills of every template instantiation, by
+readable name) without a card.
 """
 from __future__ import annotations
 
@@ -205,6 +218,32 @@ def cuda_ms(fn, iters: int) -> float:
     return e0.elapsed_time(e1) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Device ms of one fn() call without the host's launch overhead: `iters`
+    calls captured in one CUDA graph, replayed three times between CUDA
+    events. For kernels shorter than the wrappers' Python (tens of us)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(3):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    del graph
+    return e0.elapsed_time(e1) / (3 * iters)
+
+
 def wall_ms(fn, dev) -> tuple:
     """(result, wall ms) of one fn() call ending in a synchronise."""
     if dev.type == "cuda":
@@ -291,6 +330,14 @@ def ladder_edge_checks(bases, dev, rng, m):
             "ms": cuda_ms(got_fn, 3) if dev.type == "cuda" else ms_first,
             "plain_ms": plain_ms,
         }
+        if name == "ladder_w3" and dev.type == "cuda":
+            # every group width, not only the one the wrapper picks
+            sc_d = from_reference(sc, dev)
+            by_group = {
+                str(g): max_abs_err(list(cuda_g1.scalar_mul(ap, sc_d, g)), list(plain)) == 0 for g in cuda_g1.GROUPS
+            }
+            out[name].update(equal=out[name]["equal"] and all(by_group.values()), equal_by_group=by_group,
+                             group=cuda_g1.ladder_group(m))
     return out
 
 
@@ -325,14 +372,16 @@ def phase_kernels(bases, dev, rng, m_ladder, route_shape):
     point = {}
     if dev.type == "cuda":
         for name, got, want in (
-            ("jadd", lambda: cuda_g1.jadd(pj, qj), lambda: og._jadd_formulas(pj, qj)),
-            ("jdbl", lambda: cuda_g1.jdbl(pj), lambda: og._jdbl_formulas(pj)),
-            ("jmadd", lambda: cuda_g1.jmadd(pj, aq), lambda: og._jmadd_formulas(pj, aq)),
+            ("jadd", lambda g=None: cuda_g1.jadd(pj, qj, g), lambda: og._jadd_formulas(pj, qj)),
+            ("jdbl", lambda g=None: cuda_g1.jdbl(pj, g), lambda: og._jdbl_formulas(pj)),
+            ("jmadd", lambda g=None: cuda_g1.jmadd(pj, aq, g), lambda: og._jmadd_formulas(pj, aq)),
         ):
-            g, w = got(), want()
-            err = max_abs_err(list(g), list(w))
+            w = want()
+            by_group = {str(g): max_abs_err(list(got(g)), list(w)) == 0 for g in cuda_g1.GROUPS}
             point[name] = {
-                "equal": err == 0,
+                "equal": all(by_group.values()),
+                "equal_by_group": by_group,
+                "group": cuda_g1.point_group(m, name),
                 "ms": cuda_ms(got, 5),
                 "plain_ms": wall_ms(want, dev)[1],
             }
@@ -554,13 +603,15 @@ def phase_host_native(scalars, dev):
         fail(f"the native host prep disagrees with the numpy chain: {equal}")
 
 
-def phase_msm_main(bases, scalars, coef, dev):
+def phase_msm_main(bases, scalars, coef, dev, point_widths):
+    """msm() at n = 2^16. Records in point_widths["msm"] the (body, m) of
+    every point_op launch of its counted call, for kernel_times' sweep."""
     cuda_g1.reset_launch_counts()
     n = len(bases)
     before = _counts()
     c = omsm.pick_window(n)
     want = dlog_expect(coef, scalars)
-    got = msm(bases, scalars, device=dev)  # warm-up, checked
+    got, point_widths["msm"] = record_point_launches(lambda: msm(bases, scalars, device=dev), dev)  # warm-up, checked
     dlog_ok = got == want
     launches_one = _delta(before)
     sub = list(scalars[:128]) + [Fr(0)] * (n - 128)
@@ -598,6 +649,7 @@ def phase_msm_main(bases, scalars, coef, dev):
             "dlog_check": dlog_ok,
             "first128_check": sub_ok,
             "launches_per_msm": launches_one,
+            "point_op_widths": {f"{b} {m}": c for (b, m), c in sorted(point_widths["msm"].items())},
             "fast_path": launches_one["scan_full"] == 0,
             "wall_s": {"median": float(np.median(walls)), "min": min(walls), "max": max(walls)},
             "split_s": split,
@@ -613,6 +665,8 @@ def phase_msm_main(bases, scalars, coef, dev):
     for k in ("scan_sel", "gather_u32", "point_op"):
         if dev.type == "cuda" and launches_one[k] == 0:
             fail(f"msm_2e16 never launched {k}")
+    if dev.type == "cuda" and sum(point_widths["msm"].values()) != launches_one["point_op"]:
+        fail(f"msm_2e16: point_op widths recorded {point_widths['msm']}, launches counted {launches_one['point_op']}")
     return _counts()
 
 
@@ -876,9 +930,11 @@ def _sum_points(points, dev) -> G1:
     return og.jpoints_to_host(res)[0]
 
 
-def phase_vector_ops(bases, scalars, coef, dev, n_small, n_big, n_sample, rng):
+def phase_vector_ops(bases, scalars, coef, dev, n_small, n_big, n_sample, rng, point_widths):
     """The vector ops at the width of one shuffle and at the lockstep
-    prover's width. Operands: a = bases[:n], b = bases[n:2n]."""
+    prover's width. Operands: a = bases[:n], b = bases[n:2n]. Records in
+    point_widths[f"scale_points_{n}"] the (body, m) of every point_op launch
+    of scale_points, for kernel_times' sweep."""
     cuda_g1.reset_launch_counts()
     out = {"phase": "vector_ops"}
     gamma, k_common = Fr(rand_scalar(rng)), Fr(rand_scalar(rng))
@@ -918,8 +974,13 @@ def phase_vector_ops(bases, scalars, coef, dev, n_small, n_big, n_sample, rng):
         res = {}
         for name, (fn, host, total_dlog) in ops.items():
             before = _counts()
-            got, ms = wall_ms(fn, dev)
+            (got, ms), widths = record_point_launches(lambda f=fn: wall_ms(f, dev), dev)
             launches = {k: v for k, v in _delta(before).items() if v}
+            if name == "scale_points":
+                point_widths[f"scale_points_{n}"] = widths
+                if dev.type == "cuda" and not sum(widths.values()) == launches.get("point_op") == 6:
+                    fail(f"scale_points[{n}]: point_op widths recorded {widths}, launches counted {launches}, "
+                         "the ladder's table takes 6")
             elem_ok = len(got) == n and all(got[i] == host(i) for i in sample)
             sum_ok = _sum_points(got, dev) == G1() * Fr(total_dlog % FR_MOD)
             res[name] = {"elements_checked": len(sample), "elements_ok": elem_ok, "sum_ok": sum_ok,
@@ -960,7 +1021,146 @@ def glv_ladder_products(s1, s2, w: int) -> int:
     return lanes * (table + iters * w * MONT_PER_OP["dbl"]) + adds * MONT_PER_OP["jadd"]
 
 
-def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, coef, variants=False):
+def record_point_launches(fn, dev) -> tuple:
+    """Run fn() and count the point operations it hands the card: (fn()'s
+    result, (body, m) -> launches). On the CPU (the rehearsal) the plain
+    complete add is counted instead."""
+    seen = {}
+
+    def note(body, m):
+        seen[(body, m)] = seen.get((body, m), 0) + 1
+
+    if dev.type == "cuda":
+        real = cuda_g1.point_op
+
+        def spy(body, coords, qinf=None, group=None):
+            note(body, coords[0].shape[-1])
+            return real(body, coords, qinf, group)
+
+        owner, attr = cuda_g1, "point_op"
+    else:
+        real = og._jadd_formulas
+
+        def spy(p, q, handle_doubling=True):
+            note("jadd", p.x[0].numel())
+            return real(p, q, handle_doubling)
+
+        owner, attr = og, "_jadd_formulas"
+    setattr(owner, attr, spy)
+    try:
+        result = fn()
+    finally:
+        setattr(owner, attr, real)
+    return result, seen
+
+
+# widths between the main paths' own, to place the group thresholds
+POINT_PROBE_WIDTHS = (1024, 2560, 12288, 16384, 28672, 61440)
+LADDER_PROBE_WIDTHS = (1024, 2048, 3072, 4096, 6144)
+
+
+def point_group_sweep(widths, launches, p_src, q_src, packed, dev, timer):
+    """point_op at each width, each body at each thread group in turns (two
+    rounds), each against the plain version bit for bit. Operands: the
+    boundary add's p and q of the main path's msm() (lanes taken in order,
+    repeated past its width) and its affine point records as jmadd's q. Two
+    times a call: `ms` by CUDA events around back-to-back wrapper calls (the
+    host's launch overhead shows where it is longer than the kernel) and
+    `graph_ms` from a CUDA graph of 20 calls (device time). Per width and
+    body the bound and the group the wrapper picks; `launches` (name ->
+    (body, m) -> count, from record_point_launches) gives each path's
+    launches per call and the sum of launches x graph_ms at group 1 and at
+    the picked groups."""
+    cuda = dev.type == "cuda"
+    dtimer = (lambda fn, iters: graph_ms(fn, 4 * iters)) if cuda else timer
+    bodies = {"jadd": ("jadd", 9), "jdbl": ("dbl", 6), "jmadd": ("madd", 8)}  # products, field elements moved
+    n_src = p_src.x.shape[-1]
+    graph = {}  # (body, m) -> {group: mean graph ms}
+    out = {"widths": []}
+    for m in widths:
+        take = torch.arange(m, device=p_src.x.device) % n_src
+        pj = og.JPoints(*(t[:, take].contiguous() for t in p_src))
+        qj = og.JPoints(*(t[:, take].contiguous() for t in q_src))
+        rec = packed[:, take % packed.shape[1]]
+        aq = og.APoints(rec[:24].contiguous(), rec[24:48].contiguous(), rec[48] != 0)
+        calls = {
+            "jadd": (lambda g: cuda_g1.jadd(pj, qj, g) if cuda else og.jadd(pj, qj), lambda: og._jadd_formulas(pj, qj)),
+            "jdbl": (lambda g: cuda_g1.jdbl(pj, g) if cuda else og.jdbl(pj), lambda: og._jdbl_formulas(pj)),
+            "jmadd": (lambda g: cuda_g1.jmadd(pj, aq, g) if cuda else og.jmadd(pj, aq), lambda: og._jmadd_formulas(pj, aq)),
+        }
+        res = {"m": m, "bodies": {}}
+        for body, (fn, plain) in calls.items():
+            want = list(plain())
+            op, fields = bodies[body]
+            t_ops = m * MONT_PER_OP[op] * MULS_PER_MONT / INT32_MAD_PER_S * 1e3
+            t_bytes = 4 * m * (24 * fields + (body == "jmadd")) / HBM_BYTES_PER_S * 1e3
+            b = {
+                "group_picked": cuda_g1.point_group(m, body),
+                "equal_by_group": {str(g): max_abs_err(list(fn(g)), want) == 0 for g in cuda_g1.GROUPS},
+                "ms_by_group": {str(g): [] for g in cuda_g1.GROUPS},
+                "graph_ms_by_group": {str(g): [] for g in cuda_g1.GROUPS},
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            }
+            for _ in range(2):
+                for g in cuda_g1.GROUPS:
+                    b["ms_by_group"][str(g)].append(timer(lambda g=g: fn(g), 5))
+                    b["graph_ms_by_group"][str(g)].append(dtimer(lambda g=g: fn(g), 5))
+            graph[(body, m)] = {g: float(np.mean(v)) for g, v in b["graph_ms_by_group"].items()}
+            res["bodies"][body] = b
+        out["widths"].append(res)
+    for path, counts in launches.items():
+        tot = {"launches": {f"{b} {m}": c for (b, m), c in sorted(counts.items())}, "group_1_ms": 0.0, "picked_ms": 0.0}
+        for (body, m), c in counts.items():
+            if (body, m) in graph:
+                tot["group_1_ms"] += c * graph[(body, m)]["1"]
+                tot["picked_ms"] += c * graph[(body, m)][str(cuda_g1.point_group(m, body))]
+        out[f"per_{path}"] = tot
+    return out
+
+
+def w3_products(sc_m) -> int:
+    """Montgomery products ladder_w3 needs on these (16, m) scalar limbs:
+    three doublings an iteration, one add per non-zero digit."""
+    m = sc_m.shape[1]
+    nonzero = int(np.count_nonzero(omsm.host_digits(sc_m, 3, bits=255)))
+    return m * 85 * 3 * MONT_PER_OP["dbl"] + nonzero * MONT_PER_OP["jadd"]
+
+
+def ladder_group_sweep(bases, sc, dev, timer, widths, want):
+    """The ladder_w3 launch alone (its table built beforehand) at each width,
+    at each thread group in turns (two rounds), each against `want` (the
+    plain ladder's (24, n) outputs on the same lanes, n >= every width) bit
+    for bit, beside its bound and the group the wrapper picks."""
+    cuda = dev.type == "cuda"
+    out = {}
+    for m in widths:
+        ap = og.pack_points(list(bases[:m]), dev)
+        sc_m = from_reference(sc[:, :m], dev)
+        if cuda:
+            table = cuda_g1.ladder_w3_table(ap)
+            fn = lambda g: cuda_g1.ladder_w3(table, sc_m, g)  # noqa: E731
+        else:
+            fn = lambda g: tuple(og._scalar_mul_w3_plain(ap, sc_m))  # noqa: E731
+        w = [t[:, :m] for t in want]
+        products = w3_products(sc[:, :m])
+        res = {
+            "lanes": m,
+            "group_picked": cuda_g1.ladder_group(m),
+            "equal_by_group": {str(g): max_abs_err(list(fn(g)), w) == 0 for g in cuda_g1.GROUPS},
+            "ms_by_group": {str(g): [] for g in cuda_g1.GROUPS},
+            "montgomery_products": products,
+            "bound_ms": max(products * MULS_PER_MONT / INT32_MAD_PER_S, 4 * m * (7 * 72 + 16 + 72) / HBM_BYTES_PER_S) * 1e3,
+        }
+        for _ in range(2):
+            for g in cuda_g1.GROUPS:
+                res["ms_by_group"][str(g)].append(timer(lambda g=g: fn(g), 3))
+        out[str(m)] = res
+    return out
+
+
+def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_vec_small, coef, point_widths,
+                       variants=False):
     """Rebuild the tensors the main paths hand each kernel (same host prep,
     same records) and compare kernel and plain version on them."""
     n = len(bases)
@@ -1073,9 +1273,11 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, co
     R = 49
     g_direct = g  # what the direct gather made of the same records
 
-    def routed_stages(Wk):
+    def routed_stages(Wk, rounds=1):
         """The three launches of ops.gather.routed_gather over the first Wk
-        windows, one at a time, with the layout step before each."""
+        windows, one at a time, with the layout step before each; each stage
+        and torch.gather on it timed in `rounds` rounds of turns (kernel
+        first in even rounds, torch.gather first in odd ones), medians."""
         i1, i2, i3 = (t[:Wk].contiguous() for t in route_tables)
         layouts = {
             "stage1": lambda: (packed.reshape(R, rr, rc).transpose(0, 1).contiguous(),
@@ -1095,15 +1297,22 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, co
             want_s, plain_ms = wall_ms(lambda: ogather.rowwise_gather_ref(tab, idx), dev)
             G, _, K = tab.shape
             lib_idx_s = idx.to(torch.int64).unsqueeze(1).expand(-1, R, -1)
+            turns = {"ms": [], "library_ms": []}
+            calls = {"ms": lambda: ogather.rowwise_gather(tab, idx), "library_ms": lambda: torch.gather(tab, 2, lib_idx_s)}
+            for r in range(rounds):
+                for key in ("ms", "library_ms") if r % 2 == 0 else ("library_ms", "ms"):
+                    turns[key].append(timer(calls[key], 5))
             st = {
                 "stage": name, "G": G, "K": K, "M": idx.shape[1],
                 "max_abs_err": max_abs_err(out_s, want_s),
-                "ms": timer(lambda: ogather.rowwise_gather(tab, idx), 5),
+                "ms": float(np.median(turns["ms"])),
                 "plain_ms": plain_ms,
                 "bound_ms": 4 * (tab.numel() + idx.numel() + out_s.numel()) / HBM_BYTES_PER_S * 1e3,
-                "library_ms": timer(lambda: torch.gather(tab, 2, lib_idx_s), 5),
+                "library_ms": float(np.median(turns["library_ms"])),
                 "layout_before_ms": layout_ms,
             }
+            if rounds > 1:
+                st.update(ms_rounds=turns["ms"], library_ms_rounds=turns["library_ms"])
             stages.append(st)
             for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
                 tot[key] += st[key]
@@ -1124,7 +1333,7 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, co
         return tot
 
     Wc = min(W, omsm.ROUTE_WINDOW_BATCH)
-    chunk, whole = routed_stages(Wc), routed_stages(W)
+    chunk, whole = routed_stages(Wc, rounds=5), routed_stages(W)
     rows.append(
         {
             "name": "rowwise_gather",
@@ -1140,7 +1349,7 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, co
             "bound_by": "bytes",
             "library_ms": chunk["library_ms"],
             "shape": {"r": rr, "c": rc, "W": Wc, "R": R, "three_stages_summed": True,
-                      "chunks_per_msm": -(-W // Wc)},
+                      "chunks_per_msm": -(-W // Wc), "medians_of_rounds_in_turns": 5},
             "stages": chunk["stages"],
             "output_layout_ms": chunk["output_layout_ms"],
             "routed_gather_ms": chunk["routed_gather_ms"],
@@ -1212,6 +1421,7 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, co
         "scan_sel": (lambda: ostream.scan_records_sel(rec, sel_d, W, T, L, S), 3, "kernels.cu"),
         "scan_sel_split1": (lambda: ostream.scan_records_sel(rec, sel_d, W, T, L, S, split=1), 3, "kernels.cu"),
         "point_op": (lambda: tuple(cuda_g1.jadd(bl, lo)), 5, "kernels.cu"),
+        "point_op_group1": (lambda: tuple(cuda_g1.jadd(bl, lo, 1)), 5, "kernels.cu"),
     }
     row(
         "point_op",
@@ -1220,6 +1430,16 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, co
         lambda: tuple(og._jadd_formulas(bl, lo)),
         ops=m * MONT_PER_OP["jadd"] * MULS_PER_MONT,
         nbytes=4 * 24 * 9 * m,
+    )
+    # the same kernel at every width the main path's msm() at this n and its
+    # scale_points at each vector width launched it (recorded in those
+    # phases' counted runs), and at probe widths between, at every thread group
+    launches_by_path = {k: point_widths[k] for k in ("msm", f"scale_points_{n_vec}", f"scale_points_{n_vec_small}")}
+    widths = sorted({k[1] for c in launches_by_path.values() for k in c} | {w for w in POINT_PROBE_WIDTHS if w < n})
+    flat = lambda a: og.JPoints(*(t.reshape(24, -1) for t in a))  # noqa: E731
+    rows[-1].update(
+        group=cuda_g1.point_group(m),
+        group_sweep=point_group_sweep(widths, launches_by_path, flat(bl), flat(lo), packed, dev, timer),
     )
     # the four ladders: the GLV pair at the width of the widest ladder msm(),
     # the Fr ladders at the width of the large vector ops
@@ -1231,9 +1451,10 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, co
         "ladder_w1": "curdleproofs_tpu/ops/pallas_g1.py:198",
     }
     rows_in = {"ladder_glv_w3": 48 + 2 + 18, "ladder_glv_w4": 48 + 2 + 18, "ladder_w3": 7 * 72 + 16, "ladder_w1": 48 + 1 + 16}
-    dbl, jadd, madd = (MONT_PER_OP[k] for k in ("dbl", "jadd", "madd"))
+    dbl, madd = MONT_PER_OP["dbl"], MONT_PER_OP["madd"]
     n_check = min(64, n_vec)
     oracle = {}
+    w3_out = None
     for m in sorted({n_glv, n_vec}, reverse=True):
         ap = og.pack_points(list(bases[:m]), dev)
         sc_m = sc[:, :m]
@@ -1241,8 +1462,7 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, co
         products = {
             "ladder_glv_w3": glv_ladder_products(h1, h2, 3),
             "ladder_glv_w4": glv_ladder_products(h1, h2, 4),
-            "ladder_w3": m * 85 * 3 * dbl
-            + int(np.count_nonzero(omsm.host_digits(sc_m, 3, bits=255))) * jadd,
+            "ladder_w3": w3_products(sc_m),
             "ladder_w1": m * 255 * dbl + int(np.count_nonzero(omsm.host_digits(sc_m, 1, bits=255))) * madd,
         }
         for name, (got_fn, want_fn) in calls.items():
@@ -1261,10 +1481,22 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, co
                 source=LADDERS_CU,
                 shape={"lanes": m, "montgomery_products": products[name]},
             )
+            if name == "ladder_w3":
+                w3_out = got
             host = og.jpoints_to_host(og.JPoints(*(g[:, :n_check] for g in got)))
             oracle[name] = host == [
                 G1() * Fr(scalars[i].v * dlog(coef, i) % FR_MOD) for i in range(n_check)
             ]
+    # ladder_w3 alone at the two widths of the vector ops and at probe widths
+    # between, at every group
+    w3_row = next(r for r in rows if r["name"] == "ladder_w3")
+    w3_widths = sorted({n_vec_small, n_vec} | {w for w in LADDER_PROBE_WIDTHS if w < n_vec})
+    w3_row.update(group=cuda_g1.ladder_group(n_vec),
+                  group_sweep=ladder_group_sweep(bases, sc, dev, timer, w3_widths, w3_out))
+    if dev.type == "cuda":
+        for k in (n_vec, n_vec_small):
+            tab_k, sc_k = cuda_g1.ladder_w3_table(og.pack_points(list(bases[:k]), dev)), from_reference(sc[:, :k], dev)
+            variant_cases[f"ladder_w3_{k}"] = (lambda t=tab_k, s_=sc_k: tuple(cuda_g1.ladder_w3(t, s_)), 3, "ladders.cu")
     emit(
         {
             "phase": "kernel_times",
@@ -1273,6 +1505,15 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, co
         }
     )
     emit({"kernels": rows})
+    pt_sweep = next(r for r in rows if r["name"] == "point_op")["group_sweep"]
+    group_bad = [f"point_op[{b}, m={w['m']}, G={g}]" for w in pt_sweep["widths"]
+                 for b, v in w["bodies"].items() for g, ok in v["equal_by_group"].items() if not ok]
+    group_bad += [f"ladder_w3[{m}, G={g}]" for m, v in w3_row["group_sweep"].items()
+                  for g, ok in v["equal_by_group"].items() if not ok]
+    if group_bad:
+        fail(f"thread groups disagree with the plain versions: {group_bad}")
+    if dev.type == "cuda" and not (pt_sweep["per_msm"]["launches"] and pt_sweep[f"per_scale_points_{n_vec}"]["launches"]):
+        fail("the point_op sweep found no launch of msm() or scale_points to time")
     sweep_bad = [k for k, v in sweep.items() if not v["totals_sample_equal"]]
     if sweep_bad:
         fail(f"scan_sel at splits {sweep_bad} disagrees with the default split as points")
@@ -1291,6 +1532,51 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, co
         emit(product_variants(variant_cases))
 
 
+def phase_group_ab(bases, scalars, coef, dev, n_vec, n_vec_small):
+    """The thread groups the wrappers pick against one thread a lane on the
+    same card, in turns (picked, one, one, picked, twice over): the device
+    span and the wall of msm() at n (its 23 point_op launches), and for the
+    two vector widths the device ms of og.scalar_mul on packed inputs (six
+    point_op launches and one ladder_w3, CUDA events) and the wall of
+    scale_points."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def one_thread_a_lane():
+        saved = cuda_g1.point_group, cuda_g1.ladder_group
+        cuda_g1.point_group = lambda m, body="jadd": 1
+        cuda_g1.ladder_group = lambda m: 1
+        try:
+            yield
+        finally:
+            cuda_g1.point_group, cuda_g1.ladder_group = saved
+
+    want = dlog_expect(coef, scalars)
+    packed = {k: (og.pack_points(list(bases[:k]), dev), og.pack_scalars(list(scalars[:k]), dev)) for k in (n_vec, n_vec_small)}
+    order = ("picked", "one", "one", "picked") * 2
+    keys = ["msm_device_s", "msm_wall_s"] + [f"{what}_{k}" for k in (n_vec, n_vec_small) for what in ("scalar_mul_ms", "scale_points_wall_s")]
+    res = {k: {"picked": [], "one": []} for k in keys}
+    ok = True
+    for mode in order:
+        with one_thread_a_lane() if mode == "one" else contextlib.nullcontext():
+            metrics().reset()
+            t0 = time.perf_counter()
+            ok = ok and msm(bases, scalars, device=dev) == want
+            res["msm_wall_s"][mode].append(time.perf_counter() - t0)
+            res["msm_device_s"][mode].append(metrics().report()["msm.stream.device"]["total_time_s"])
+            for k, (ap, sc_d) in packed.items():
+                res[f"scalar_mul_ms_{k}"][mode].append(cuda_ms(lambda: og.scalar_mul(ap, sc_d), 3))
+                res[f"scale_points_wall_s_{k}"][mode].append(
+                    wall_ms(lambda: ovec.scale_points(bases[:k], scalars[:k], device=dev), dev)[1] / 1e3
+                )
+    out = {"phase": "group_ab", "order": list(order), "msm_ok": ok}
+    for k, v in res.items():
+        out[k] = dict(v, median_picked=float(np.median(v["picked"])), median_one=float(np.median(v["one"])))
+    emit(out)
+    if not ok:
+        fail("msm() with one thread a lane disagrees with the oracle")
+
+
 # Build-time variants of the Montgomery product (csrc/fq.cuh) and of scan_sel's
 # register cap (csrc/kernels.cu), timed by --product-variants beside the
 # default build, "by_value"
@@ -1304,9 +1590,37 @@ VARIANT_UNITS = ("kernels.cu", "ladders.cu")
 VARIANT_BUILD_LIMIT_S = 480
 
 
+def demangle(names) -> dict:
+    """Mangled C++ name -> its readable form up to the argument list
+    (`curdle::point_kernel<0, 4>`), by the CUDA toolkit's cu++filt or the
+    host's c++filt; the mangled name where neither is found."""
+    import os
+    import shutil
+
+    names = list(names)
+    toolkit = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cu++filt")
+    tool = shutil.which("cu++filt") or (toolkit if os.path.exists(toolkit) else None) or shutil.which("c++filt")
+    if not names or tool is None:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="".join(n + "\n" for n in names), capture_output=True, text=True).stdout.splitlines()
+    if len(out) != len(names):
+        return {n: n for n in names}
+
+    def head(sig):  # the name up to its argument list; template arguments may hold "(int)"
+        depth = 0
+        for i, ch in enumerate(sig):
+            depth += (ch == "<") - (ch == ">")
+            if ch == "(" and depth == 0:
+                return sig[:i]
+        return sig
+
+    return {n: head(o).removeprefix("void ").replace("(int)", "") for n, o in zip(names, out)}
+
+
 def ptxas_stats(stderr: str) -> dict:
     """Kernel -> what ptxas -v said of it: registers, stack frame (local
-    memory), spills."""
+    memory), spills; one entry per template instantiation, by its readable
+    name."""
     entry, stats = None, {}
     for line in stderr.splitlines():
         if "Compiling entry function" in line:
@@ -1315,7 +1629,8 @@ def ptxas_stats(stderr: str) -> dict:
             stats[entry] = {"frame": line.strip()}
         elif entry and "Used" in line and "registers" in line:
             stats[entry]["used"] = line.split(":", 1)[1].strip()
-    return stats
+    readable = demangle(stats)
+    return {readable[k]: v for k, v in stats.items()}
 
 
 def product_variants(cases) -> dict:
@@ -1500,8 +1815,9 @@ def main() -> int:
 
     # the main paths: each sets the launch counts to 0 just before it drives
     # its entry points and returns them as read just after
+    point_widths = {}  # path -> (body, m) -> point_op launches, from those runs
     by_phase = {
-        "msm_2e16": timed_phase("msm_2e16", phase_msm_main, bases[:n_main], scalars[:n_main], coef, dev),
+        "msm_2e16": timed_phase("msm_2e16", phase_msm_main, bases[:n_main], scalars[:n_main], coef, dev, point_widths),
         "msm_redo": timed_phase("msm_redo", phase_msm_redo, n_redo, dev),
         "msm_split": timed_phase("msm_split", phase_msm_split, bases, scalars, coef, dev),
         "msm_routed": timed_phase(
@@ -1515,15 +1831,18 @@ def main() -> int:
             "ladder_segmented", phase_ladder_segmented, bases, scalars, coef, dev, *seg
         ),
         "vector_ops": timed_phase(
-            "vector_ops", phase_vector_ops, bases, scalars, coef, dev, n_vec_small, n_vec_big, n_sample, rng
+            "vector_ops", phase_vector_ops, bases, scalars, coef, dev, n_vec_small, n_vec_big, n_sample, rng,
+            point_widths,
         ),
     }
     launches = {k: sum(c[k] for c in by_phase.values()) for k in cuda_g1.KERNEL_NAMES}
 
     timed_phase(
         "kernel_times", phase_kernel_times, bases[:n_main], scalars[:n_main], dev, launches, by_phase,
-        n_ladder, n_vec_big, coef, args.product_variants and dev.type == "cuda",
+        n_ladder, n_vec_big, n_vec_small, coef, point_widths, args.product_variants and dev.type == "cuda",
     )
+    if dev.type == "cuda":
+        timed_phase("group_ab", phase_group_ab, bases[:n_main], scalars[:n_main], coef, dev, n_vec_big, n_vec_small)
     emit({"phase": "seconds", "per_phase": PHASE_SECONDS, "total": time.perf_counter() - T_START})
 
     if args.rehearse_cpu:

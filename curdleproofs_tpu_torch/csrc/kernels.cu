@@ -334,7 +334,7 @@ gather_kernel(const uint32_t* __restrict__ table, const int32_t* __restrict__ id
 }
 
 // ---------------------------------------------------------------------------
-// point_op: elementwise point operation over m lanes, one thread per lane.
+// point_op: elementwise point operation over m lanes, G threads a lane.
 //
 // Replaces ops/pallas_g1.py::_build_kernel of the JAX package (bodies jadd,
 // jdbl, jmadd). Bound by operations (16 / 7 / 11 Montgomery products per
@@ -342,20 +342,39 @@ gather_kernel(const uint32_t* __restrict__ table, const int32_t* __restrict__ id
 //   JADD:  (px, py, pz, qx, qy, qz)        -> p + q, complete
 //   JDBL:  (px, py, pz)                    -> 2p
 //   JMADD: (px, py, pz, qx, qy), qinf (m,) -> p + q, q affine, complete
+//
+// One thread a lane leaves most of the card idle at the widths the MSM and
+// the vector ops launch it at (124 to 20,480 lanes: at most 1.2 warps a
+// warp scheduler), and a warp of this arithmetic nearly fills its scheduler
+// on its own, so a lane's time is one thread's chain of up to 16 dependent
+// out-of-line products. So a group of G neighbouring threads serves a lane
+// (G = 1, 2 or 4, chosen by the caller from m and the body:
+// ops/cuda_g1.point_group) and runs each formula's independent products side
+// by side (the group formulas of g1.cuh): the chain is 5 / 3 / 5 products
+// long at G = 4, on G times the warps. Once the warps fill the schedulers a
+// group only adds work (repeated products, additions redone by every thread,
+// shuffles), so wide launches keep G = 1, the one-thread formula, unchanged.
+//
+// Thread t serves lane t / G as thread t % G of its group. A warp covers
+// 32 / G neighbouring lanes: the G threads of a lane load the same words
+// (one broadcast), and each stores its share of the words. A thread past
+// m computes lane m - 1 again and stores nothing, so every warp stays whole
+// for the shuffles.
 // ---------------------------------------------------------------------------
 
 constexpr int POINT_THREADS = 128;
 enum PointBody { JADD = 0, JDBL = 1, JMADD = 2 };
 
-template <int BODY>
+template <int BODY, int G>
 __global__ void __launch_bounds__(POINT_THREADS)
 point_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
              const uint32_t* __restrict__ pz, const uint32_t* __restrict__ qx,
              const uint32_t* __restrict__ qy, const uint32_t* __restrict__ qz,
              const int32_t* __restrict__ qinf, uint32_t* __restrict__ ox,
              uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, int m) {
-  const int i = blockIdx.x * POINT_THREADS + threadIdx.x;
-  if (i >= m) return;
+  const int t = blockIdx.x * POINT_THREADS + threadIdx.x;
+  const int lane = t / G, q = t % G;
+  const int i = lane < m ? lane : m - 1;
   const size_t stride = (size_t)m;
   Jac p;
   p.x = fq_load(px + i, stride);
@@ -363,22 +382,31 @@ point_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
   p.z = fq_load(pz + i, stride);
   Jac res;
   if (BODY == JADD) {
-    Jac q;
-    q.x = fq_load(qx + i, stride);
-    q.y = fq_load(qy + i, stride);
-    q.z = fq_load(qz + i, stride);
-    res = jac_add(p, q);
+    Jac b;
+    b.x = fq_load(qx + i, stride);
+    b.y = fq_load(qy + i, stride);
+    b.z = fq_load(qz + i, stride);
+    res = jac_add_g<G, true>(p, b, q);
   } else if (BODY == JDBL) {
-    res = jac_dbl(p);
+    res = jac_dbl_g<G>(p, q);
   } else {
     const Fq ax = fq_load(qx + i, stride);
     const Fq ay = fq_load(qy + i, stride);
-    jac_madd<true>(res, p, ax, ay, qinf[i] != 0);
+    jac_madd_g<G, true>(res, p, ax, ay, qinf[i] != 0, q);
   }
-  fq_store(ox + i, stride, res.x);
-  fq_store(oy + i, stride, res.y);
-  fq_store(oz + i, stride, res.z);
+  if (lane < m) jac_store_share<G>(ox + i, oy + i, oz + i, stride, res, q);
 }
+
+using PointKernel = void (*)(const uint32_t*, const uint32_t*, const uint32_t*, const uint32_t*,
+                             const uint32_t*, const uint32_t*, const int32_t*, uint32_t*,
+                             uint32_t*, uint32_t*, int);
+
+// [body][0, 1, 2 for G = 1, 2, 4]
+const PointKernel POINT_KERNELS[3][3] = {
+    {point_kernel<JADD, 1>, point_kernel<JADD, 2>, point_kernel<JADD, 4>},
+    {point_kernel<JDBL, 1>, point_kernel<JDBL, 2>, point_kernel<JDBL, 4>},
+    {point_kernel<JMADD, 1>, point_kernel<JMADD, 2>, point_kernel<JMADD, 4>},
+};
 
 }  // namespace curdle
 
@@ -436,27 +464,20 @@ int curdle_gather_u32(const void* table, const void* idx, void* out, int R, int 
   return (int)cudaGetLastError();
 }
 
-// body: 0 jadd, 1 jdbl, 2 jmadd. Coordinate arrays are (24, m); unused
-// inputs may be null.
+// body: 0 jadd, 1 jdbl, 2 jmadd; group: threads a lane, 1, 2 or 4; blocks of
+// POINT_THREADS, at least m * group threads in all. Coordinate arrays are
+// (24, m); unused inputs may be null.
 int curdle_point_op(int body, const void* px, const void* py, const void* pz, const void* qx,
                     const void* qy, const void* qz, const void* qinf, void* ox, void* oy, void* oz,
-                    int m, void* stream) {
-  const int blocks = (m + POINT_THREADS - 1) / POINT_THREADS;
-  cudaStream_t st = (cudaStream_t)stream;
-#define CURDLE_POINT_ARGS                                                                    \
-  (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)pz, (const uint32_t*)qx,        \
-      (const uint32_t*)qy, (const uint32_t*)qz, (const int32_t*)qinf, (uint32_t*)ox,         \
-      (uint32_t*)oy, (uint32_t*)oz, m
-  if (body == JADD) {
-    point_kernel<JADD><<<blocks, POINT_THREADS, 0, st>>>(CURDLE_POINT_ARGS);
-  } else if (body == JDBL) {
-    point_kernel<JDBL><<<blocks, POINT_THREADS, 0, st>>>(CURDLE_POINT_ARGS);
-  } else if (body == JMADD) {
-    point_kernel<JMADD><<<blocks, POINT_THREADS, 0, st>>>(CURDLE_POINT_ARGS);
-  } else {
+                    int m, int group, int blocks, void* stream) {
+  const int gi = group == 1 ? 0 : group == 2 ? 1 : group == 4 ? 2 : -1;
+  if (body < 0 || body > 2 || gi < 0 || m < 1 ||
+      (long long)blocks * POINT_THREADS < (long long)m * group)
     return (int)cudaErrorInvalidValue;
-  }
-#undef CURDLE_POINT_ARGS
+  POINT_KERNELS[body][gi]<<<blocks, POINT_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)pz, (const uint32_t*)qx,
+      (const uint32_t*)qy, (const uint32_t*)qz, (const int32_t*)qinf, (uint32_t*)ox,
+      (uint32_t*)oy, (uint32_t*)oz, m);
   return (int)cudaGetLastError();
 }
 

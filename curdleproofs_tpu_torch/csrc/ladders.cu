@@ -8,8 +8,8 @@
 // stream it is given, allocates nothing, does not synchronise, and returns
 // cudaGetLastError().
 //
-// Four kernels, each computing k_i * P_i for every lane i, one thread per
-// lane, the whole ladder inside the thread:
+// Four kernels, each computing k_i * P_i for every lane i, the whole ladder
+// inside one thread (ladder_w3: inside a group of 1, 2 or 4 threads):
 //
 //   ladder_glv_w3, ladder_glv_w4   (one template over the window width)
 //       replace ops/pallas_g1.py::_build_glv_ladder_kernel and
@@ -25,12 +25,15 @@
 // `_scalar_mul_plain`), so all three Jacobian coordinates come out bit for
 // bit the same; where those select by mask, a thread branches.
 //
-// What the design does about the bound: nothing yet beyond keeping every
-// intermediate in the thread. The callers offer 8,192 to 16,384 lanes, less
+// What the design does about the bound: the GLV ladders and ladder_w1 keep
+// every intermediate in the thread; ladder_w3 spreads each lane over a group
+// of threads that run a formula's independent products side by side (see
+// its kernel). The callers offer 124 to 16,384 lanes, less
 // than one warp per scheduler of the card, so blocks are one warp wide to
 // spread the chains over all SMs. The point formulas are called through
-// `__noinline__` shims: an iteration holds up to six point operations, and
-// one shared body each keeps the build at seconds (see fq.cuh on fq_mul).
+// `__noinline__` shims (except by ladder_w3 at G > 1, see there): an
+// iteration holds up to six point operations, and one shared body each keeps
+// the build at seconds (see fq.cuh on fq_mul).
 //
 // Tables: table 1 of the GLV ladders ({1..7} or {1..15} times +-P, 1,008 or
 // 2,160 bytes a thread) is indexed by a run-time digit and therefore lives
@@ -165,19 +168,57 @@ ladder_glv_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ 
 
 // ---------------------------------------------------------------------------
 // ladder_w3: k*P over 16-limb scalars with 3-bit windows, the table
-// {1..7}*P handed in by the caller (built with the point kernel).
+// {1..7}*P handed in by the caller (built with the point kernel), G threads
+// a lane (1, 2 or 4, chosen by the caller from m: ops/cuda_g1.ladder_group).
 //
 // table (7, 72, m): entry k - 1 is the Jacobian triple of k*P (X rows 0-23,
 // Y 24-47, Z 48-71); sc (16, m) -> ox, oy, oz (24, m). 85 times: three
 // doublings, one doubling-free table add by the digit at bit 252 - 3*i.
+//
+// One thread a lane (G = 1) leaves schedulers idle: the vector ops launch it
+// at 124 to 8,192 lanes, at most half a warp a scheduler, and an iteration
+// is a chain of 3 * 7 + 16 = 37 dependent products. With the group formulas
+// of g1.cuh the chain is 3 * 3 + 5 = 14 product rounds at G = 4 and 24 at
+// G = 2, on G times the warps; past one warp a scheduler the extra work of a
+// group costs more than the shorter chain saves (ops/cuda_g1.ladder_group).
+// The digit is the lane's, so a group agrees on it; a warp runs
+// the add when any of its groups has a non-zero digit (at G > 1) and keeps
+// it only in those groups. The G threads of a lane read the scalar and the
+// table entry as one broadcast load, and each stores its share of the
+// result; a thread past m computes lane m - 1 again and stores nothing.
 // ---------------------------------------------------------------------------
 
+// How the loop calls its two formulas. G = 1 goes through the shims lad_dbl
+// and lad_add, as the GLV ladders do (the one-thread kernel); G > 1 has the group
+// formulas inlined into the loop, which drops the stack frame from 864 to 40
+// bytes and ran 10 % faster on an H100 than through __noinline__ shims
+// (PERF.md).
+template <int G>
+__device__ __forceinline__ void w3_dbl(Jac& p, int q) {
+  if constexpr (G == 1) {
+    lad_dbl(p);
+  } else {
+    p = jac_dbl_g<G>(p, q);
+  }
+}
+
+template <int G>
+__device__ __forceinline__ void w3_add(Jac& acc, const Jac& b, int q) {
+  if constexpr (G == 1) {
+    lad_add(acc, b);
+  } else {
+    acc = jac_add_g<G, false>(acc, b, q);
+  }
+}
+
+template <int G>
 __global__ void __launch_bounds__(LADDER_THREADS)
 ladder_w3_kernel(const uint32_t* __restrict__ table, const uint32_t* __restrict__ sc,
                  uint32_t* __restrict__ ox, uint32_t* __restrict__ oy, uint32_t* __restrict__ oz,
                  int m) {
-  const int i = blockIdx.x * LADDER_THREADS + threadIdx.x;
-  if (i >= m) return;
+  const int t = blockIdx.x * LADDER_THREADS + threadIdx.x;
+  const int lane = t / G, q = t % G;
+  const int i = lane < m ? lane : m - 1;
   const size_t stride = (size_t)m;
   Scalar<16> k;
   k.load(sc + i, stride);
@@ -186,18 +227,20 @@ ladder_w3_kernel(const uint32_t* __restrict__ table, const uint32_t* __restrict_
 #pragma unroll 1
   for (int it = 0; it < 85; ++it) {
 #pragma unroll 1
-    for (int j = 0; j < 3; ++j) lad_dbl(acc);
+    for (int j = 0; j < 3; ++j) w3_dbl<G>(acc, q);
     const uint32_t d = k.digit(252 - 3 * it, 3);
-    if (d != 0u) {
-      const uint32_t* e = table + (size_t)(d - 1) * 72 * stride + i;
-      Jac t;
-      t.x = fq_load(e, stride);
-      t.y = fq_load(e + 24 * stride, stride);
-      t.z = fq_load(e + 48 * stride, stride);
-      lad_add(acc, t);
+    if (G == 1 ? d != 0u : __any_sync(FULL_WARP, d != 0u)) {
+      const uint32_t* e = table + (size_t)(d != 0u ? d - 1 : 0) * 72 * stride + i;
+      Jac b;
+      b.x = fq_load(e, stride);
+      b.y = fq_load(e + 24 * stride, stride);
+      b.z = fq_load(e + 48 * stride, stride);
+      Jac sum = acc;
+      w3_add<G>(sum, b, q);
+      if (d != 0u) acc = sum;
     }
   }
-  jac_store(ox + i, oy + i, oz + i, stride, acc);
+  if (lane < m) jac_store_share<G>(ox + i, oy + i, oz + i, stride, acc, q);
 }
 
 // ---------------------------------------------------------------------------
@@ -260,12 +303,25 @@ int curdle_ladder_glv(int w, const void* px, const void* py, const void* inf, co
   return (int)cudaGetLastError();
 }
 
-// table (7, 72, m), sc (16, m) -> ox, oy, oz (24, m).
+// table (7, 72, m), sc (16, m) -> ox, oy, oz (24, m); group: threads a lane,
+// 1, 2 or 4; blocks of LADDER_THREADS, at least m * group threads in all.
 int curdle_ladder_w3(const void* table, const void* sc, void* ox, void* oy, void* oz, int m,
-                     void* stream) {
-  const int blocks = (m + LADDER_THREADS - 1) / LADDER_THREADS;
-  ladder_w3_kernel<<<blocks, LADDER_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)table, (const uint32_t*)sc, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, m);
+                     int group, int blocks, void* stream) {
+  if (m < 1 || (long long)blocks * LADDER_THREADS < (long long)m * group)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#define CURDLE_W3_ARGS \
+  (const uint32_t*)table, (const uint32_t*)sc, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, m
+  if (group == 1) {
+    ladder_w3_kernel<1><<<blocks, LADDER_THREADS, 0, st>>>(CURDLE_W3_ARGS);
+  } else if (group == 2) {
+    ladder_w3_kernel<2><<<blocks, LADDER_THREADS, 0, st>>>(CURDLE_W3_ARGS);
+  } else if (group == 4) {
+    ladder_w3_kernel<4><<<blocks, LADDER_THREADS, 0, st>>>(CURDLE_W3_ARGS);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+#undef CURDLE_W3_ARGS
   return (int)cudaGetLastError();
 }
 

@@ -17,7 +17,11 @@ imported.
 Jacobian add is 16 Montgomery products (300 32-bit multiplies each) on 6
 field elements read and 3 written, and a ladder chains 2,300 to 4,600 such
 products per lane between reading a point and writing one. One thread
-computes one lane.
+computes one lane, except in `point_op` and `ladder_w3`: there a group of
+`group` threads (1, 2 or 4, `GROUPS`) serves a lane and runs each formula's
+independent products side by side (csrc/g1.cuh); `point_group(m, body)` and
+`ladder_group(m)` pick it from the width, and the wrappers compute the grid
+(`launch_blocks`).
 
 Every wrapper launches on `torch.cuda.current_stream()`, allocates its outputs
 with `torch.empty`, raises on a non-zero return, and adds one to its entry in
@@ -65,11 +69,11 @@ ENTRY_POINTS = {
         "curdle_scan_sel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "curdle_scan_full": [_P, _P, _P, _I, _I, _I, _P],
         "curdle_gather_u32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-        "curdle_point_op": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+        "curdle_point_op": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "ladders.cu": {
         "curdle_ladder_glv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
-        "curdle_ladder_w3": [_P, _P, _P, _P, _P, _I, _P],
+        "curdle_ladder_w3": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
         "curdle_ladder_w1": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
     },
     "gather.cu": {
@@ -95,6 +99,12 @@ launch_counts: Dict[str, int] = {k: 0 for k in KERNEL_NAMES}
 # GLV ladder window width, 3 or 4: 43 iterations over 7-entry tables or 33
 # over 15-entry tables. The JAX package's knob, under its name.
 GLV_W = int(os.environ.get("CURDLEPROOFS_GLV_W", "3"))
+
+# Threads a lane that the point kernel (csrc/kernels.cu) and ladder_w3
+# (csrc/ladders.cu) are built for, and their block widths there.
+GROUPS = (1, 2, 4)
+POINT_THREADS = 128
+LADDER_THREADS = 32
 
 _lib: Optional[types.SimpleNamespace] = None
 build_seconds: Optional[float] = None  # nvcc wall time of this process's build
@@ -207,20 +217,66 @@ def check_launch(name: str, rc: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# thread groups
+# ---------------------------------------------------------------------------
+
+
+# Thread groups by width, from chip_smoke.py's group sweeps on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md). One warp of this arithmetic keeps its
+# warp scheduler nearly busy, so a group pays while the lanes' warps leave
+# schedulers idle (528 on the card) and costs once they do not: it runs up
+# to 1.5x the products (a thread with no product of its own in a round
+# repeats one), every thread redoes the additions, and the products are
+# swapped by shuffles.
+# point_op: body -> (widest m for G = 4, widest m for G = 2); G = 1 beyond.
+POINT_GROUP_LIMITS = {"jadd": (8192, 16384), "jdbl": (2560, 8192), "jmadd": (2560, 16384)}
+# ladder_w3: (widest m for G = 4, widest m for G = 2); G = 1 beyond.
+LADDER_GROUP_LIMITS = (4096, 8192)
+
+
+def point_group(m: int, body: str = "jadd") -> int:
+    """Threads a lane for `point_op` of `body` at m lanes."""
+    four, two = POINT_GROUP_LIMITS[body]
+    return 4 if m <= four else 2 if m <= two else 1
+
+
+def ladder_group(m: int) -> int:
+    """Threads a lane for `ladder_w3` at m lanes."""
+    four, two = LADDER_GROUP_LIMITS
+    return 4 if m <= four else 2 if m <= two else 1
+
+
+def check_group(name: str, group: int) -> None:
+    if group not in GROUPS:
+        raise ValueError(f"{name}: group must be one of {GROUPS} (the kernels built), got {group}")
+
+
+def launch_blocks(m: int, group: int, threads: int) -> int:
+    """Blocks of `threads` that give each of m lanes its `group` threads.
+    Thread t of the grid serves lane t // group as thread t % group of its
+    group; the threads past m * group compute the last lane again and
+    store nothing."""
+    return -(-m * group // threads)
+
+
+# ---------------------------------------------------------------------------
 # point_op
 # ---------------------------------------------------------------------------
 
 _BODIES = {"jadd": 0, "jdbl": 1, "jmadd": 2}
 
 
-def point_op(body: str, coords, qinf: Optional[torch.Tensor] = None):
+def point_op(body: str, coords, qinf: Optional[torch.Tensor] = None, group: Optional[int] = None):
     """Launch the elementwise point kernel. coords: 6 (jadd), 3 (jdbl) or 5
-    (jmadd) contiguous (24, m) int32 CUDA tensors; qinf (m,) int32 for jmadd.
-    Returns three (24, m) tensors (X, Y, Z)."""
+    (jmadd) contiguous (24, m) int32 CUDA tensors; qinf (m,) int32 for jmadd;
+    group: threads a lane (default `point_group(m, body)`). Returns three (24, m)
+    tensors (X, Y, Z)."""
     n_in = {"jadd": 6, "jdbl": 3, "jmadd": 5}[body]
     if len(coords) != n_in:
         raise ValueError(f"{body}: expected {n_in} coordinate tensors")
     m = coords[0].shape[-1]
+    group = point_group(m, body) if group is None else group
+    check_group(f"point_op[{body}]", group)
     for k, c in enumerate(coords):
         check_tensor(f"{body} input {k}", c, (24, m))
     if body == "jmadd":
@@ -238,6 +294,8 @@ def point_op(body: str, coords, qinf: Optional[torch.Tensor] = None):
             qinf.data_ptr() if qinf is not None else None,
             *(o.data_ptr() for o in outs),
             m,
+            group,
+            launch_blocks(m, group, POINT_THREADS),
             stream_ptr(),
         )
     check_launch(f"point_op[{body}]", rc)
@@ -253,31 +311,31 @@ def _flat(arrs):
     return [a.reshape(24, -1).contiguous() for a in arrs], shape
 
 
-def jadd(p, q):
+def jadd(p, q, group: Optional[int] = None):
     """Complete Jacobian + Jacobian add on (24, *B) CUDA coords."""
     from curdleproofs_tpu_torch.ops.g1 import JPoints
 
     flats, shape = _flat([p.x, p.y, p.z, q.x, q.y, q.z])
-    x, y, z = point_op("jadd", flats)
+    x, y, z = point_op("jadd", flats, group=group)
     return JPoints(x.reshape(shape), y.reshape(shape), z.reshape(shape))
 
 
-def jdbl(p):
+def jdbl(p, group: Optional[int] = None):
     """Jacobian doubling on (24, *B) CUDA coords."""
     from curdleproofs_tpu_torch.ops.g1 import JPoints
 
     flats, shape = _flat([p.x, p.y, p.z])
-    x, y, z = point_op("jdbl", flats)
+    x, y, z = point_op("jdbl", flats, group=group)
     return JPoints(x.reshape(shape), y.reshape(shape), z.reshape(shape))
 
 
-def jmadd(p, q):
+def jmadd(p, q, group: Optional[int] = None):
     """Complete Jacobian + affine mixed add on (24, *B) CUDA coords."""
     from curdleproofs_tpu_torch.ops.g1 import JPoints
 
     flats, shape = _flat([p.x, p.y, p.z, q.x, q.y])
     qinf = q.inf.expand(shape[1:]).reshape(-1).to(torch.int32).contiguous()
-    x, y, z = point_op("jmadd", flats, qinf)
+    x, y, z = point_op("jmadd", flats, qinf, group=group)
     return JPoints(x.reshape(shape), y.reshape(shape), z.reshape(shape))
 
 
@@ -339,34 +397,60 @@ def scalar_mul_glv(points, s1, neg1, s2, w: Optional[int] = None):
     return JPoints(*(o.reshape(shape) for o in outs))
 
 
-def scalar_mul(points, scalars):
-    """Per lane k*P over (16, *B) canonical Fr limbs with the 3-bit windowed
-    ladder. The table {1..7}P is built with six launches of the point kernel
-    (dbl, madd, dbl, madd, dbl, madd), then one `ladder_w3` launch runs the 85
-    window iterations. Returns Jacobian (24, *B)."""
-    from curdleproofs_tpu_torch.ops.g1 import APoints, JPoints, lift
+def ladder_w3_table(base) -> torch.Tensor:
+    """The table {1..7}P of `ladder_w3` for affine (24, m) CUDA points, as
+    (7, 72, m): six launches of the point kernel (dbl, madd, dbl, madd,
+    dbl, madd)."""
+    from curdleproofs_tpu_torch.ops.g1 import lift
 
-    px, py, shape, m = _ladder_base("scalar_mul", points)
-    sc = scalars.reshape(16, -1).contiguous()
-    check_tensor("scalar_mul scalars", sc, (16, m))
-    outs = _ladder_outputs(px, m)
+    t1 = lift(base)
+    t2 = jdbl(t1)
+    t3 = jmadd(t2, base)
+    t4 = jdbl(t2)
+    t5 = jmadd(t4, base)
+    t6 = jdbl(t3)
+    t7 = jmadd(t6, base)
+    return torch.stack([torch.cat(tuple(t), dim=0) for t in (t1, t2, t3, t4, t5, t6, t7)])
+
+
+def ladder_w3(table: torch.Tensor, sc: torch.Tensor, group: Optional[int] = None):
+    """One `ladder_w3` launch: table (7, 72, m) from `ladder_w3_table`, sc
+    (16, m) canonical Fr limbs; group: threads a lane (default
+    `ladder_group(m)`). Returns three (24, m) tensors (X, Y, Z)."""
+    m = sc.shape[-1]
+    group = ladder_group(m) if group is None else group
+    check_group("ladder_w3", group)
+    check_tensor("ladder_w3 table", table, (7, 72, m))
+    check_tensor("ladder_w3 scalars", sc, (16, m))
+    outs = _ladder_outputs(sc, m)
     if m:
-        base = APoints(px, py, points.inf.reshape(-1))
-        t1 = lift(base)
-        t2 = jdbl(t1)
-        t3 = jmadd(t2, base)
-        t4 = jdbl(t2)
-        t5 = jmadd(t4, base)
-        t6 = jdbl(t3)
-        t7 = jmadd(t6, base)
-        table = torch.stack([torch.cat(tuple(t), dim=0) for t in (t1, t2, t3, t4, t5, t6, t7)])
-        check_tensor("scalar_mul table", table, (7, 72, m))
-        with torch.cuda.device(px.device):
+        with torch.cuda.device(sc.device):
             rc = lib().curdle_ladder_w3(
-                table.data_ptr(), sc.data_ptr(), *(o.data_ptr() for o in outs), m, stream_ptr()
+                table.data_ptr(), sc.data_ptr(), *(o.data_ptr() for o in outs), m, group,
+                launch_blocks(m, group, LADDER_THREADS), stream_ptr(),
             )
         check_launch("ladder_w3", rc)
         launch_counts["ladder_w3"] += 1
+    return outs
+
+
+def scalar_mul(points, scalars, group: Optional[int] = None):
+    """Per lane k*P over (16, *B) canonical Fr limbs with the 3-bit windowed
+    ladder: the table {1..7}P (`ladder_w3_table`), then one `ladder_w3`
+    launch runs the 85 window iterations with `group` threads a lane
+    (default `ladder_group(m)`). Returns Jacobian (24, *B)."""
+    from curdleproofs_tpu_torch.ops.g1 import APoints, JPoints
+
+    if group is not None:
+        check_group("scalar_mul", group)
+    px, py, shape, m = _ladder_base("scalar_mul", points)
+    sc = scalars.reshape(16, -1).contiguous()
+    check_tensor("scalar_mul scalars", sc, (16, m))
+    if m:
+        table = ladder_w3_table(APoints(px, py, points.inf.reshape(-1)))
+        outs = ladder_w3(table, sc, group)
+    else:
+        outs = _ladder_outputs(px, m)
     return JPoints(*(o.reshape(shape) for o in outs))
 
 

@@ -56,6 +56,65 @@ def test_point_op_bodies(points):
     assert cuda_g1.launch_counts["point_op"] == before + 4
 
 
+# Operands with one of each branch in every stretch of seven lanes, so one
+# warp holds groups in different branches: P + P, P + (-P), identity on
+# either side, both identity; p and q Jacobian with z != 1, d affine
+GROUP_KINDS = ("dbl", "neg", "pinf", "qinf", "both")
+
+
+def _rescale(a, zs, card):
+    """(x z^2, y z^3, z) of affine points, z = 0 where the point is infinity."""
+    from curdleproofs_tpu_torch.fields import FQ_MOD
+    from curdleproofs_tpu_torch.ops import modarith as ma
+    from curdleproofs_tpu_torch.ops.fieldspec import FQ_SPEC
+
+    z = from_reference(np.asarray(ints_to_limbs([v * FQ_SPEC.r_mod % FQ_MOD for v in zs], 24), dtype=np.uint32), card)
+    z2 = ma.mont_sqr(FQ_SPEC, z)
+    z = torch.where(a.inf.unsqueeze(0), torch.zeros_like(z), z)
+    return og.JPoints(ma.mont_mul(FQ_SPEC, a.x, z2), ma.mont_mul(FQ_SPEC, a.y, ma.mont_mul(FQ_SPEC, z2, z)), z)
+
+
+def _group_operands(m, card):
+    rng = random.Random(m)
+    pts = [G1() * Fr(rng.randrange(1, FR_MOD)) for _ in range(m)]
+    qts = [G1() * Fr(rng.randrange(1, FR_MOD)) for _ in range(m)]
+    for i in range(m):
+        kind = GROUP_KINDS[i % 7 - 1] if 1 <= i % 7 <= len(GROUP_KINDS) else None
+        if kind == "dbl":
+            qts[i] = pts[i]
+        elif kind == "neg":
+            qts[i] = -pts[i]
+        elif kind == "pinf":
+            pts[i] = G1.identity()
+        elif kind == "qinf":
+            qts[i] = G1.identity()
+        elif kind == "both":
+            pts[i] = qts[i] = G1.identity()
+    ap, aq = og.pack_points(pts, card), og.pack_points(qts, card)
+    pj = _rescale(ap, [i + 2 for i in range(m)], card)
+    qj = _rescale(aq, [3 * i + 5 for i in range(m)], card)
+    return pts, qts, pj, qj, aq
+
+
+@pytest.mark.parametrize("m", [1, 3, 33, 257])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("body", ["jadd", "jdbl", "jmadd"])
+def test_point_op_groups(card, body, group, m):
+    """Every thread group, ragged widths, every branch in one warp: bit-equal
+    to the plain formulas and equal to the host's points."""
+    pts, qts, pj, qj, aq = _group_operands(m, card)
+    got_fn, want, host = {
+        "jadd": (lambda: cuda_g1.jadd(pj, qj, group), og._jadd_formulas(pj, qj), [p + q for p, q in zip(pts, qts)]),
+        "jdbl": (lambda: cuda_g1.jdbl(pj, group), og._jdbl_formulas(pj), [p + p for p in pts]),
+        "jmadd": (lambda: cuda_g1.jmadd(pj, aq, group), og._jmadd_formulas(pj, aq), [p + q for p, q in zip(pts, qts)]),
+    }[body]
+    before = cuda_g1.launch_counts["point_op"]
+    got = got_fn()
+    assert cuda_g1.launch_counts["point_op"] == before + 1
+    assert _equal(got, want)
+    assert og.jpoints_to_host(got) == host
+
+
 def test_gather(card):
     rng = np.random.default_rng(1)
     table = torch.from_numpy(rng.integers(0, 1 << 16, (49, 3, 100)).astype(np.int32)).to(card)
@@ -196,3 +255,23 @@ def test_ladder_w3_and_w1(ladder_lanes, card):
     assert cuda_g1.launch_counts["ladder_w1"] == before["ladder_w1"] + 1
     assert _equal(got, og._scalar_mul_plain(ap, sc_d, acc0=og._jzero(ap.x)))
     assert og.jpoints_to_host(got) == want
+
+
+_W3_PLAIN = {}
+
+
+@pytest.mark.parametrize("lanes", [1, 5, 64])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_ladder_w3_groups(ladder_lanes, card, group, lanes):
+    """ladder_w3 at every thread group: bit-equal to the plain ladder, equal
+    to the host's k * P, one launch."""
+    ap, sc, want = ladder_lanes
+    ap = og.APoints(ap.x[:, :lanes].contiguous(), ap.y[:, :lanes].contiguous(), ap.inf[:lanes].contiguous())
+    sc_d = from_reference(np.ascontiguousarray(sc[:, :lanes]), card)
+    if lanes not in _W3_PLAIN:
+        _W3_PLAIN[lanes] = og._scalar_mul_w3_plain(ap, sc_d)
+    before = cuda_g1.launch_counts["ladder_w3"]
+    got = cuda_g1.scalar_mul(ap, sc_d, group)
+    assert cuda_g1.launch_counts["ladder_w3"] == before + 1
+    assert _equal(got, _W3_PLAIN[lanes])
+    assert og.jpoints_to_host(got) == want[:lanes]

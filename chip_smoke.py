@@ -12,8 +12,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
   device     card name and power limit (nvidia-smi), kernel build time, the
              native host library's build time and OpenMP threads
   kernels    the nine kernels vs their plain versions at small shapes with
-             edge lanes (point_op and ladder_w3 at every thread group G = 1,
-             2, 4; identity, P+P, P+(-P), a forced p == q collision in
+             edge lanes (point_op, ladder_w3 and the GLV ladders at every
+             thread group G = 1, 2, 4; identity, P+P, P+(-P), a forced
+             p == q collision in
              scan_sel at split 1 and at the default split, the two equal as
              points; empty and repeated selection slots, out-of-range gather
              indices, a ragged M, shared and per-window tables, both gather
@@ -65,26 +66,33 @@ Phases, each printing one JSON line; any failure exits non-zero:
              every thread group in turns, bit-equal to plain, with CUDA-graph
              device times, bounds, launches per msm() and the group the
              wrapper picks (`group_sweep`); ladder_w3 alone at the two vector
-             widths at every group the same way. Launch counts are those of
+             widths, and each GLV ladder alone at 124, 1,024, 4,096, 6,144,
+             8,192, 12,288 and 16,383 lanes, at every group the same way.
+             Launch counts are those of
              the eight main-path phases above: set to 0 just before each,
              read just after it
   group_ab   the groups the wrappers pick against one thread a lane, in
-             turns: msm() at 2^16 (device span, wall) and the vector ops'
-             scalar_mul at both widths (device ms) and scale_points (wall)
+             turns: msm() at 2^16 (device span, wall), the vector ops'
+             scalar_mul at both widths (device ms) and scale_points (wall),
+             msm() through the GLV ladder at 4,096 and msm_ladder_segmented
+             at 64 x 128 (device span, wall)
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit. `--rehearse-cpu` walks the same control flow at
 a tiny size on the CPU with the plain versions, to find faults without a
 card; it prints no result and exits 2. `--product-variants` adds a phase
-after kernel_times: kernels.cu and ladders.cu built once per variant of the
-Montgomery product (operands by value, the default; by reference; inlined)
-and with scan_sel's registers not capped, eight compilers side by side, each
-build's ptxas figures and nvcc seconds, and scan_sel (default split and split
-1), point_op (the picked group and group 1), ladder_glv_w3 and ladder_w3
-alone at both vector widths (picked group) timed under every build that
-compiled, at the shapes above, bit-equal to the loaded build. `--ptxas` prints the default build's
-ptxas figures (registers, stack, spills of every template instantiation, by
-readable name) without a card.
+after kernel_times: the sources built once per entry of PRODUCT_VARIANTS
+(the field arithmetic on carry chains, the default; the arithmetic before
+it, cios64; by reference; inlined; scan_sel's registers not capped),
+the compilers side by side, each build's ptxas figures, nvcc seconds and
+machine instructions (and those of one fq_mul and one fq_sqr), and all
+nine kernels (scan_sel also at split 1, point_op also at group 1, the GLV
+ladders also at 8,192 lanes, ladder_w3 alone at both vector widths) timed
+under every build of their source that compiled, at the shapes above,
+three rounds in turns, bit-equal to the loaded build. `--ptxas` prints the
+default build's ptxas figures (registers, stack, spills of every template
+instantiation, by readable name) and machine instructions per kernel
+without a card.
 """
 from __future__ import annotations
 
@@ -316,7 +324,14 @@ def ladder_edge_checks(bases, dev, rng, m):
     want = [p * Fr(k) for p, k in zip(pts, ks)]
     ap = og.pack_points(pts, dev)
     sc = np.asarray(ints_to_limbs(ks, 16), dtype=np.uint32)
-    calls, (_s1, neg1, _s2) = ladder_calls(ap, sc, dev)
+    calls, (s1, neg1, s2) = ladder_calls(ap, sc, dev)
+    sc_d = from_reference(sc, dev)
+    glv_args = (ap, from_reference(s1, dev), from_reference(neg1, dev), from_reference(s2, dev))
+    by_group_calls = {  # name -> (call at thread group g, the group the wrapper picks)
+        "ladder_w3": (lambda g: cuda_g1.scalar_mul(ap, sc_d, g), cuda_g1.ladder_group(m)),
+        **{f"ladder_glv_w{w}": (lambda g, w=w: cuda_g1.scalar_mul_glv(*glv_args, w=w, group=g),
+                                cuda_g1.ladder_glv_group(m, w)) for w in (3, 4)},
+    }
     out = {"m": m, "negative_k1_lanes": int(neg1.sum())}
     for name, (got_fn, want_fn) in calls.items():
         before = cuda_g1.launch_counts[name]
@@ -330,14 +345,12 @@ def ladder_edge_checks(bases, dev, rng, m):
             "ms": cuda_ms(got_fn, 3) if dev.type == "cuda" else ms_first,
             "plain_ms": plain_ms,
         }
-        if name == "ladder_w3" and dev.type == "cuda":
+        if name in by_group_calls and dev.type == "cuda":
             # every group width, not only the one the wrapper picks
-            sc_d = from_reference(sc, dev)
-            by_group = {
-                str(g): max_abs_err(list(cuda_g1.scalar_mul(ap, sc_d, g)), list(plain)) == 0 for g in cuda_g1.GROUPS
-            }
+            fn, picked = by_group_calls[name]
+            by_group = {str(g): max_abs_err(list(fn(g)), list(plain)) == 0 for g in cuda_g1.GROUPS}
             out[name].update(equal=out[name]["equal"] and all(by_group.values()), equal_by_group=by_group,
-                             group=cuda_g1.ladder_group(m))
+                             group=picked)
     return out
 
 
@@ -1159,6 +1172,42 @@ def ladder_group_sweep(bases, sc, dev, timer, widths, want):
     return out
 
 
+GLV_PROBE_WIDTHS = (124, 1024, 4096, 6144, 8192, 12288)  # one shuffle, the protocol's, the segmented prover's
+
+
+def glv_group_sweep(ap, halves, w, dev, timer, widths, want):
+    """The GLV ladder of window width w alone at each width (the first m
+    lanes of the affine points `ap` and of the host half-scalars `halves` =
+    (|k1| limbs, sign of k1, k2 limbs)), at each thread group in turns (two
+    rounds), each against `want` (the plain ladder's (24, n) outputs on the
+    same lanes, n >= every width) bit for bit, beside its bound and the group
+    the wrapper picks."""
+    cuda = dev.type == "cuda"
+    h1, neg1, h2 = halves
+    out = {}
+    for m in widths:
+        apm = og.APoints(ap.x[:, :m].contiguous(), ap.y[:, :m].contiguous(), ap.inf[:m].contiguous())
+        args = (apm, *(from_reference(np.ascontiguousarray(h[..., :m]), dev) for h in (h1, neg1, h2)))
+        if cuda:
+            fn = lambda g: tuple(cuda_g1.scalar_mul_glv(*args, w=w, group=g))  # noqa: E731
+        else:
+            fn = lambda g: tuple(og._scalar_mul_glv_plain(*args, w=w))  # noqa: E731
+        products = glv_ladder_products(h1[:, :m], h2[:, :m], w)
+        res = {
+            "lanes": m,
+            "group_picked": cuda_g1.ladder_glv_group(m, w),
+            "equal_by_group": {str(g): max_abs_err(list(fn(g)), [t[:, :m] for t in want]) == 0 for g in cuda_g1.GROUPS},
+            "ms_by_group": {str(g): [] for g in cuda_g1.GROUPS},
+            "montgomery_products": products,
+            "bound_ms": max(products * MULS_PER_MONT / INT32_MAD_PER_S, 4 * m * (48 + 2 + 18 + 72) / HBM_BYTES_PER_S) * 1e3,
+        }
+        for _ in range(2):
+            for g in cuda_g1.GROUPS:
+                res["ms_by_group"][str(g)].append(timer(lambda g=g: fn(g), 3))
+        out[str(m)] = res
+    return out
+
+
 def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_vec_small, coef, point_widths,
                        variants=False):
     """Rebuild the tensors the main paths hand each kernel (same host prep,
@@ -1187,10 +1236,13 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_
 
     stream_shape = {"W": W, "T": T, "L": L, "S": S, "n": n2}
 
+    plain_out = {}  # name -> the plain version's outputs of its row
+
     def row(name, replaces, got_fn, want_fn, ops, nbytes, library_fn=None, iters=5,
             source=KERNELS_CU, shape=stream_shape):
         got, ms_first = wall_ms(got_fn, dev)
         want, plain_ms = wall_ms(want_fn, dev)
+        plain_out[name] = want
         err = max_abs_err(list(got) if isinstance(got, tuple) else got,
                           list(want) if isinstance(want, tuple) else want)
         t_ops, t_bytes = ops / INT32_MAD_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
@@ -1334,6 +1386,7 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_
 
     Wc = min(W, omsm.ROUTE_WINDOW_BATCH)
     chunk, whole = routed_stages(Wc, rounds=5), routed_stages(W)
+    chunk_tables = tuple(t[:Wc].contiguous() for t in route_tables)  # one chunk's, for --product-variants
     rows.append(
         {
             "name": "rowwise_gather",
@@ -1418,6 +1471,9 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_
     m = bl.x[0].numel()
     # the calls --product-variants times under each variant build
     variant_cases = {
+        "gather_u32": (lambda: (ogather.gather_u32_shared(packed, idx_d),), 5, "kernels.cu"),
+        "rowwise_gather": (lambda: (ogather.routed_gather(packed, *chunk_tables),), 5, "gather.cu"),
+        "scan_full": (lambda: ostream.scan_records(rec, W, T, L), 3, "kernels.cu"),
         "scan_sel": (lambda: ostream.scan_records_sel(rec, sel_d, W, T, L, S), 3, "kernels.cu"),
         "scan_sel_split1": (lambda: ostream.scan_records_sel(rec, sel_d, W, T, L, S, split=1), 3, "kernels.cu"),
         "point_op": (lambda: tuple(cuda_g1.jadd(bl, lo)), 5, "kernels.cu"),
@@ -1458,7 +1514,9 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_
     for m in sorted({n_glv, n_vec}, reverse=True):
         ap = og.pack_points(list(bases[:m]), dev)
         sc_m = sc[:, :m]
-        calls, (h1, _neg, h2) = ladder_calls(ap, sc_m, dev)
+        calls, (h1, neg_m, h2) = ladder_calls(ap, sc_m, dev)
+        if m == n_glv:
+            glv_inputs = (ap, (h1, neg_m, h2))
         products = {
             "ladder_glv_w3": glv_ladder_products(h1, h2, 3),
             "ladder_glv_w4": glv_ladder_products(h1, h2, 4),
@@ -1468,7 +1526,7 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_
         for name, (got_fn, want_fn) in calls.items():
             if lanes[name] != m:
                 continue
-            if name == "ladder_glv_w3":
+            if name != "ladder_w3":
                 variant_cases[name] = (lambda f=got_fn: tuple(f()), 3, "ladders.cu")
             got = row(
                 name,
@@ -1493,10 +1551,25 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_
     w3_widths = sorted({n_vec_small, n_vec} | {w for w in LADDER_PROBE_WIDTHS if w < n_vec})
     w3_row.update(group=cuda_g1.ladder_group(n_vec),
                   group_sweep=ladder_group_sweep(bases, sc, dev, timer, w3_widths, w3_out))
+    # the GLV ladders alone at the protocol's widths and the table's, at every group
+    glv_widths = sorted({n_glv} | {w for w in GLV_PROBE_WIDTHS if w < n_glv})
+    for w in (3, 4):
+        name = f"ladder_glv_w{w}"
+        glv_row = next(r for r in rows if r["name"] == name)
+        glv_row.update(group=cuda_g1.ladder_glv_group(n_glv, w),
+                       group_sweep=glv_group_sweep(*glv_inputs, w, dev, timer, glv_widths, plain_out[name]))
     if dev.type == "cuda":
         for k in (n_vec, n_vec_small):
             tab_k, sc_k = cuda_g1.ladder_w3_table(og.pack_points(list(bases[:k]), dev)), from_reference(sc[:, :k], dev)
             variant_cases[f"ladder_w3_{k}"] = (lambda t=tab_k, s_=sc_k: tuple(cuda_g1.ladder_w3(t, s_)), 3, "ladders.cu")
+        # the GLV ladders at the segmented prover's width, the group the wrapper picks
+        k = max(w for w in glv_widths if w <= 8192)
+        ap_k, (h1, neg_k, h2) = glv_inputs
+        args_k = (og.APoints(ap_k.x[:, :k].contiguous(), ap_k.y[:, :k].contiguous(), ap_k.inf[:k].contiguous()),
+                  *(from_reference(np.ascontiguousarray(h[..., :k]), dev) for h in (h1, neg_k, h2)))
+        for w in (3, 4):
+            variant_cases[f"ladder_glv_w{w}_{k}"] = (
+                lambda w=w: tuple(cuda_g1.scalar_mul_glv(*args_k, w=w)), 3, "ladders.cu")
     emit(
         {
             "phase": "kernel_times",
@@ -1508,8 +1581,8 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_
     pt_sweep = next(r for r in rows if r["name"] == "point_op")["group_sweep"]
     group_bad = [f"point_op[{b}, m={w['m']}, G={g}]" for w in pt_sweep["widths"]
                  for b, v in w["bodies"].items() for g, ok in v["equal_by_group"].items() if not ok]
-    group_bad += [f"ladder_w3[{m}, G={g}]" for m, v in w3_row["group_sweep"].items()
-                  for g, ok in v["equal_by_group"].items() if not ok]
+    group_bad += [f"{r['name']}[{m}, G={g}]" for r in rows if r["name"] in ("ladder_w3", "ladder_glv_w3", "ladder_glv_w4")
+                  for m, v in r["group_sweep"].items() for g, ok in v["equal_by_group"].items() if not ok]
     if group_bad:
         fail(f"thread groups disagree with the plain versions: {group_bad}")
     if dev.type == "cuda" and not (pt_sweep["per_msm"]["launches"] and pt_sweep[f"per_scale_points_{n_vec}"]["launches"]):
@@ -1532,29 +1605,38 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_
         emit(product_variants(variant_cases))
 
 
-def phase_group_ab(bases, scalars, coef, dev, n_vec, n_vec_small):
+def phase_group_ab(bases, scalars, coef, dev, n_vec, n_vec_small, n_glv, seg):
     """The thread groups the wrappers pick against one thread a lane on the
     same card, in turns (picked, one, one, picked, twice over): the device
-    span and the wall of msm() at n (its 23 point_op launches), and for the
-    two vector widths the device ms of og.scalar_mul on packed inputs (six
+    span and the wall of msm() at n (its 23 point_op launches); for the two
+    vector widths the device ms of og.scalar_mul on packed inputs (six
     point_op launches and one ladder_w3, CUDA events) and the wall of
-    scale_points."""
+    scale_points; msm() through the GLV ladder at n_glv points (device span
+    and wall) and msm_ladder_segmented on seg = (K, m) packed inputs (device
+    span and wall), each with one GLV ladder launch."""
     import contextlib
 
     @contextlib.contextmanager
     def one_thread_a_lane():
-        saved = cuda_g1.point_group, cuda_g1.ladder_group
+        saved = cuda_g1.point_group, cuda_g1.ladder_group, cuda_g1.ladder_glv_group
         cuda_g1.point_group = lambda m, body="jadd": 1
         cuda_g1.ladder_group = lambda m: 1
+        cuda_g1.ladder_glv_group = lambda m, w: 1
         try:
             yield
         finally:
-            cuda_g1.point_group, cuda_g1.ladder_group = saved
+            cuda_g1.point_group, cuda_g1.ladder_group, cuda_g1.ladder_glv_group = saved
 
     want = dlog_expect(coef, scalars)
+    want_glv = dlog_expect(coef, scalars[:n_glv])
+    K, m = seg
+    seg_pts = og.pack_points(list(bases[: K * m]), dev)
+    seg_sc = np.asarray(ints_to_limbs([s.v for s in scalars[: K * m]], 16), dtype=np.uint32)
+    want_seg = [dlog_expect(coef, scalars[k * m : (k + 1) * m], start=k * m) for k in range(K)]
     packed = {k: (og.pack_points(list(bases[:k]), dev), og.pack_scalars(list(scalars[:k]), dev)) for k in (n_vec, n_vec_small)}
     order = ("picked", "one", "one", "picked") * 2
     keys = ["msm_device_s", "msm_wall_s"] + [f"{what}_{k}" for k in (n_vec, n_vec_small) for what in ("scalar_mul_ms", "scale_points_wall_s")]
+    keys += [f"msm_ladder_{n_glv}_device_s", f"msm_ladder_{n_glv}_wall_s", "segmented_device_s", "segmented_wall_s"]
     res = {k: {"picked": [], "one": []} for k in keys}
     ok = True
     for mode in order:
@@ -1569,25 +1651,54 @@ def phase_group_ab(bases, scalars, coef, dev, n_vec, n_vec_small):
                 res[f"scale_points_wall_s_{k}"][mode].append(
                     wall_ms(lambda: ovec.scale_points(bases[:k], scalars[:k], device=dev), dev)[1] / 1e3
                 )
-    out = {"phase": "group_ab", "order": list(order), "msm_ok": ok}
+            metrics().reset()
+            t0 = time.perf_counter()
+            ok = ok and msm(bases[:n_glv], scalars[:n_glv], device=dev) == want_glv
+            res[f"msm_ladder_{n_glv}_wall_s"][mode].append(time.perf_counter() - t0)
+            got, ms = wall_ms(lambda: omsm.msm_ladder_segmented(seg_pts, seg_sc, K), dev)
+            ok = ok and got == want_seg
+            res["segmented_wall_s"][mode].append(ms / 1e3)
+            rep = metrics().report()
+            res[f"msm_ladder_{n_glv}_device_s"][mode].append(rep["msm.ladder.device"]["total_time_s"])
+            res["segmented_device_s"][mode].append(rep["msm.ladder_seg.device"]["total_time_s"])
+    out = {"phase": "group_ab", "order": list(order), "results_ok": ok,
+           "glv_group_picked": {f"w{w}": {"msm_ladder": cuda_g1.ladder_glv_group(n_glv, w),
+                                          "segmented": cuda_g1.ladder_glv_group(K * m, w)} for w in (3, 4)}}
     for k, v in res.items():
         out[k] = dict(v, median_picked=float(np.median(v["picked"])), median_one=float(np.median(v["one"])))
     emit(out)
     if not ok:
-        fail("msm() with one thread a lane disagrees with the oracle")
+        fail("an MSM with the picked groups or with one thread a lane disagrees with the oracle")
 
 
-# Build-time variants of the Montgomery product (csrc/fq.cuh) and of scan_sel's
-# register cap (csrc/kernels.cu), timed by --product-variants beside the
-# default build, "by_value"
+# Build-time variants, timed by --product-variants beside the default build,
+# "by_value" (the field arithmetic on carry chains, the product and the
+# square out of line with their operands by value): name -> (nvcc flags, the
+# sources built with them). cios64 is the arithmetic that came before the
+# carry chains (64-bit accumulation, a word-serial product), built for all
+# three sources (gather.cu includes no field arithmetic, so its two builds
+# are the same code: their difference is the spread of identical builds);
+# by_reference and inlined change how fq_mul and fq_sqr are called;
+# scan_uncapped lifts scan_sel's register cap.
 PRODUCT_VARIANTS = {
-    "by_value": (),
-    "by_reference": ("-DCURDLE_FQ_MUL_BY_REF",),
-    "inlined": ("-DCURDLE_FQ_MUL_INLINE",),
-    "scan_uncapped": ("-DCURDLE_SCAN_MIN_BLOCKS=1",),
+    "by_value": ((), ("kernels.cu", "ladders.cu", "gather.cu")),
+    "cios64": (("-DCURDLE_FQ_CIOS64",), ("kernels.cu", "ladders.cu", "gather.cu")),
+    "by_reference": (("-DCURDLE_FQ_MUL_BY_REF",), ("kernels.cu", "ladders.cu")),
+    "inlined": (("-DCURDLE_FQ_MUL_INLINE",), ("kernels.cu", "ladders.cu")),
+    "scan_uncapped": (("-DCURDLE_SCAN_MIN_BLOCKS=1",), ("kernels.cu",)),
 }
-VARIANT_UNITS = ("kernels.cu", "ladders.cu")
-VARIANT_BUILD_LIMIT_S = 480
+VARIANT_BUILD_LIMIT_S = 300
+# One call of fq_mul or fq_sqr in a kernel of its own, to count the
+# machine instructions of the product and the square under each variant.
+PRODUCT_PROBE = """#include "fq.cuh"
+using namespace curdle;
+#if defined(PROBE_MUL)
+extern "C" __global__ void probe(Fq* v) { v[0] = fq_mul(v[1], v[2]); }
+#else
+extern "C" __global__ void probe(Fq* v) { v[0] = fq_sqr(v[1]); }
+#endif
+"""
+VARIANT_ROUNDS = 3  # rounds of turns, the builds in reverse order every other round
 
 
 def demangle(names) -> dict:
@@ -1634,26 +1745,37 @@ def ptxas_stats(stderr: str) -> dict:
 
 
 def product_variants(cases) -> dict:
-    """Build kernels.cu and ladders.cu once per PRODUCT_VARIANTS entry, all
+    """Build the sources of each PRODUCT_VARIANTS entry with its flags, all
     compilers started together, and time each of `cases` (name -> (call
     through the package's wrappers, launches to average, the unit of its
     kernel)) under every build of its unit that compiled, bound in place of
-    the loaded one, in two rounds of turns. Each variant's outputs must equal
-    the loaded build's bit for bit."""
+    the loaded one, in VARIANT_ROUNDS rounds of turns. Each variant's outputs
+    must equal the loaded build's bit for bit. Each build also reports the
+    machine instructions of its kernels, and each variant those of one call
+    of fq_mul and of fq_sqr in a kernel of its own (`PRODUCT_PROBE`, with
+    the call's loads and stores)."""
     import ctypes
     import tempfile
     import types
 
-    report = {"phase": "product_variants", "builds_side_by_side": len(PRODUCT_VARIANTS) * len(VARIANT_UNITS)}
+    report = {"phase": "product_variants", "builds_side_by_side": sum(len(u) for _, u in PRODUCT_VARIANTS.values())}
     with tempfile.TemporaryDirectory() as tmp:
         running = {}
         t0 = time.perf_counter()
-        for v, flags in PRODUCT_VARIANTS.items():
-            for unit in VARIANT_UNITS:
+        probe = f"{tmp}/probe.cu"
+        with open(probe, "w") as fh:
+            fh.write(PRODUCT_PROBE)
+        probes = {}
+        for v, (flags, units) in PRODUCT_VARIANTS.items():
+            for unit in units:
                 so, log = f"{tmp}/{v}_{unit}.so", open(f"{tmp}/{v}_{unit}.log", "w+")
                 cmd = cuda_g1.nvcc_command(unit, so, extra=(*flags, "-Xptxas", "-v"))
                 running[(v, unit)] = (so, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT))
-        builds = {v: {"flags": list(f), "units": {}} for v, f in PRODUCT_VARIANTS.items()}
+            for name in ("mul", "sqr"):
+                so = f"{tmp}/{v}_probe_{name}.so"
+                cmd = cuda_g1.nvcc_command(probe, so, extra=(*flags, f"-DPROBE_{name.upper()}"))  # an absolute path
+                probes[(v, name)] = (so, subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
+        builds = {v: {"flags": list(f), "units": {}} for v, (f, _) in PRODUCT_VARIANTS.items()}
         while any(p.poll() is None for _, _, p in running.values()):
             if time.perf_counter() - t0 > VARIANT_BUILD_LIMIT_S:
                 break
@@ -1674,8 +1796,13 @@ def product_variants(cases) -> dict:
                     entry["error"] = f"nvcc exit {p.returncode}: {text[-2000:]}"
                 else:
                     entry["ptxas"] = ptxas_stats(text)
+                    entry["sass_instructions"] = {k: v["instructions"] for k, v in sass_counts(so).items()}
                     entry["so"] = so
             log.close()
+        for (v, name), (so, p) in probes.items():
+            if p.wait() == 0:
+                builds[v].setdefault("sass_probe", {})[f"fq_{name}"] = sum(
+                    c["instructions"] for c in sass_counts(so).values())
         loaded = cuda_g1.lib()
         bound = {}  # variant -> its bindings and the units that built
         for v, b in builds.items():
@@ -1694,8 +1821,8 @@ def product_variants(cases) -> dict:
         err = {v: {} for v in bound}
         want = {c: list(fn()) for c, (fn, _, _) in cases.items()}  # every case returns a tuple
         try:
-            for rnd in range(2):
-                for v, (ns, _) in bound.items():
+            for rnd in range(VARIANT_ROUNDS):
+                for v, (ns, _) in (bound.items() if rnd % 2 == 0 else reversed(bound.items())):
                     cuda_g1._lib = ns
                     for c in ms[v]:
                         fn, iters, _ = cases[c]
@@ -1715,9 +1842,39 @@ def product_variants(cases) -> dict:
     return report
 
 
+def sass_counts(so: str) -> dict:
+    """Machine instructions of each function (kernels and the out-of-line
+    fq_mul / fq_sqr) in a built library, by the CUDA toolkit's cuobjdump:
+    readable name -> {"instructions": n, "top": the eight most frequent
+    opcodes}. Empty where cuobjdump is not found."""
+    import os
+    import re
+    import shutil
+    from collections import Counter
+
+    toolkit = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    tool = shutil.which("cuobjdump") or (toolkit if os.path.exists(toolkit) else None)
+    if tool is None:
+        return {}
+    text = subprocess.run([tool, "-sass", so], capture_output=True, text=True).stdout
+    ops, fn = {}, None
+    for line in text.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            ops[fn] = Counter()
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if fn and ins:
+            ops[fn][ins.group(1)] += 1
+    readable = demangle(ops)
+    return {readable[k]: {"instructions": sum(c.values()), "top": dict(c.most_common(8))} for k, c in ops.items()}
+
+
 def ptxas_report() -> int:
-    """What ptxas says of each kernel: registers, stack frame (local memory),
-    spills. Needs nvcc, no card."""
+    """What ptxas says of each kernel (registers, stack frame in local memory,
+    spills) and the machine instructions of each function. Needs nvcc, no
+    card."""
     import tempfile
 
     for unit in cuda_g1.ENTRY_POINTS:
@@ -1726,10 +1883,11 @@ def ptxas_report() -> int:
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True)
             seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            print(proc.stderr, file=sys.stderr)
-            return 1
-        emit({"phase": "ptxas", "source": unit, "nvcc_s": seconds, "kernels": ptxas_stats(proc.stderr)})
+            if proc.returncode != 0:
+                print(proc.stderr, file=sys.stderr)
+                return 1
+            emit({"phase": "ptxas", "source": unit, "nvcc_s": seconds, "kernels": ptxas_stats(proc.stderr),
+                  "sass": sass_counts(f"{tmp}/out.so")})
     return 0
 
 
@@ -1842,7 +2000,8 @@ def main() -> int:
         n_ladder, n_vec_big, n_vec_small, coef, point_widths, args.product_variants and dev.type == "cuda",
     )
     if dev.type == "cuda":
-        timed_phase("group_ab", phase_group_ab, bases[:n_main], scalars[:n_main], coef, dev, n_vec_big, n_vec_small)
+        timed_phase("group_ab", phase_group_ab, bases[:n_main], scalars[:n_main], coef, dev, n_vec_big, n_vec_small,
+                    small_sizes[-1], seg)
     emit({"phase": "seconds", "per_phase": PHASE_SECONDS, "total": time.perf_counter() - T_START})
 
     if args.rehearse_cpu:

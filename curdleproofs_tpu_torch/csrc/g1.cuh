@@ -120,11 +120,12 @@ __device__ __forceinline__ bool jac_madd(Jac& out, const Jac& p, const Fq& qx, c
 //   jac_madd  {Z1^2, Y2*Z1} {U2, S2} {H^2, R^2, 2Z1*H} {H*I, X1*I}
 //             {R*(V-X3), Y1*J}                                      5 rounds
 // Thread q of the group computes products q, q + G, ... of a round with the
-// one out-of-line fq_mul, and the group then exchanges them by warp
-// shuffles, so every thread holds every product; each thread redoes the
-// additions and subtractions itself. A lane's chain of dependent products
-// shrinks from 7 / 16 / 11 to 3 / 5 / 5 at G = 4, and the card gets G times
-// the warps. The field values are those of the one-thread formulas (products
+// out-of-line fq_mul (fq_sqr where the whole round is squares: the second
+// round of jac_dbl and the third of jac_add), and the group then exchanges
+// them by warp shuffles, so every thread holds every product; each thread
+// redoes the additions and subtractions itself. A lane's chain of dependent
+// products shrinks from 7 / 16 / 11 to 3 / 5 / 5 at G = 4, and the card gets
+// G times the warps. The field values are those of the one-thread formulas (products
 // of canonical residues are canonical whatever their order), so the results
 // are the same bit for bit.
 //
@@ -157,12 +158,15 @@ __device__ __forceinline__ void jac_store_share(uint32_t* __restrict__ ox, uint3
 }
 
 // r[j] = a[j] * b[j] for j < N, by the G threads of a group side by side.
-// q: this thread's place in its group.
-template <int G, int N>
+// q: this thread's place in its group. SQR: every product of the round is a
+// square (b == a), so every thread calls fq_sqr; a round that mixes squares
+// and products calls fq_mul for all, so the threads of a warp never take
+// different calls.
+template <int G, int N, bool SQR = false>
 __device__ __forceinline__ void mul_round(Fq (&r)[N], const Fq (&a)[N], const Fq (&b)[N], int q) {
   if constexpr (G == 1) {
 #pragma unroll
-    for (int j = 0; j < N; ++j) r[j] = fq_mul(a[j], b[j]);
+    for (int j = 0; j < N; ++j) r[j] = SQR ? fq_sqr(a[j]) : fq_mul(a[j], b[j]);
   } else {
     constexpr int S = (N + G - 1) / G;  // products a thread computes
     Fq mine[S];
@@ -177,7 +181,7 @@ __device__ __forceinline__ void mul_round(Fq (&r)[N], const Fq (&a)[N], const Fq
           y = b[s * G + k];
         }
       }
-      mine[s] = fq_mul(x, y);
+      mine[s] = SQR ? fq_sqr(x) : fq_mul(x, y);
     }
 #pragma unroll
     for (int j = 0; j < N; ++j) {
@@ -200,7 +204,7 @@ __device__ __forceinline__ Jac jac_dbl_g(const Jac& p, int q) {
     const Fq e = fq_add(fq_add(r1[0], r1[0]), r1[0]);
     const Fq a2[3] = {r1[1], t, e}, b2[3] = {r1[1], t, e};
     Fq r2[3];  // C = B^2, (X+B)^2, F = E^2
-    mul_round<G, 3>(r2, a2, b2, q);
+    mul_round<G, 3, true>(r2, a2, b2, q);
     const Fq d = fq_dbl(fq_sub(fq_sub(r2[1], r1[0]), r2[0]));
     Jac res;
     res.x = fq_sub(r2[2], fq_dbl(d));
@@ -233,7 +237,7 @@ __device__ __forceinline__ Jac jac_add_g(const Jac& p, const Jac& q2, int q) {
     const Fq h2 = fq_dbl(h), zs = fq_add(p.z, q2.z);
     const Fq a3[3] = {h2, r, zs}, b3[3] = {h2, r, zs};
     Fq r3[3];  // I = (2H)^2, R^2, (Z1+Z2)^2
-    mul_round<G, 3>(r3, a3, b3, q);
+    mul_round<G, 3, true>(r3, a3, b3, q);
     const Fq zz = fq_sub(fq_sub(r3[2], r1[0]), r1[1]);
     const Fq a4[3] = {h, r2[0], zz}, b4[3] = {r3[0], r3[0], h};
     Fq r4[3];  // J = H*I, V = U1*I, Z3 = ZZ*H

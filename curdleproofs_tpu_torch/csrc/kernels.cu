@@ -47,24 +47,26 @@ namespace curdle {
 //         sub-chain's end is the lane total; the flag ORs over A and C.
 //    The chain is 2T/K adds plus log2(K) complete adds long, and there are K
 //    times the threads; the price is twice the mixed adds.
-//  * The mixed add calls fq_mul, the product out of line with its operands
-//    in registers. No tensor cores: the work is exact 384-bit modular
-//    arithmetic with carries, which wgmma does not do.
+//  * The mixed add calls fq_mul and fq_sqr, the product and the square on
+//    PTX carry chains, out of line with their operands in registers (fq.cuh).
+//    No tensor cores: the work is exact 384-bit modular arithmetic with
+//    carries, which wgmma does not do.
 //  * Registers capped for occupancy: __launch_bounds__ asks for two blocks
 //    of SCAN_MAX_THREADS an SM, so at most 128 registers a thread and 16
 //    warps an SM. The kernel spills some 1.2 KB a thread under the cap and
 //    still ran 10 % faster at K = 16 on an H100 than uncapped (255
 //    registers, 8 warps an SM).
 //  chip_smoke.py --product-variants times this kernel uncapped
-//  (CURDLE_SCAN_MIN_BLOCKS = 1), with the product's operands by reference,
-//  and inlined (which crashed nvcc 12.8 on this file); PERF.md has the
-//  readings. A product on PTX carry chains and a prefetch of the next
-//  step's record were not measured in any committed form.
+//  (CURDLE_SCAN_MIN_BLOCKS = 1), with the arithmetic before the carry
+//  chains, with the product's operands by reference, and inlined; PERF.md
+//  has the readings. A prefetch of the next step's record was not measured
+//  in any committed form.
 //
-// What bounds it now: the products, some 1,500 instructions each, twice
-// over for the split. Replacing phase C's second walk by one complete add
-// per selected prefix halves the mixed adds, but those adds are sparse and
-// diverge across a warp, and measured slower (PERF.md).
+// What bounds it now: the products, some 430 machine instructions each
+// (1,180 before the carry chains), twice over for the split. Replacing
+// phase C's second walk by one complete add per selected prefix halves the
+// mixed adds, but those adds are sparse and diverge across a warp, and
+// measured slower (PERF.md).
 //
 // Blocks are LB lanes x K sub-chains, sub-chain-major, with LB >= 8 so a
 // record row load of a sub-chain covers whole 32-byte sectors; small blocks

@@ -8,8 +8,8 @@
 // stream it is given, allocates nothing, does not synchronise, and returns
 // cudaGetLastError().
 //
-// Four kernels, each computing k_i * P_i for every lane i, the whole ladder
-// inside one thread (ladder_w3: inside a group of 1, 2 or 4 threads):
+// Four kernels, each computing k_i * P_i for every lane i, each lane served
+// by a group of G threads (G = 1, 2 or 4; ladder_w1 one thread):
 //
 //   ladder_glv_w3, ladder_glv_w4   (one template over the window width)
 //       replace ops/pallas_g1.py::_build_glv_ladder_kernel and
@@ -25,22 +25,27 @@
 // `_scalar_mul_plain`), so all three Jacobian coordinates come out bit for
 // bit the same; where those select by mask, a thread branches.
 //
-// What the design does about the bound: the GLV ladders and ladder_w1 keep
-// every intermediate in the thread; ladder_w3 spreads each lane over a group
-// of threads that run a formula's independent products side by side (see
-// its kernel). The callers offer 124 to 16,384 lanes, less
-// than one warp per scheduler of the card, so blocks are one warp wide to
-// spread the chains over all SMs. The point formulas are called through
-// `__noinline__` shims (except by ladder_w3 at G > 1, see there): an
-// iteration holds up to six point operations, and one shared body each keeps
-// the build at seconds (see fq.cuh on fq_mul).
+// What the design does about the bound: the callers offer 124 to 16,384
+// lanes, so blocks are one warp wide to spread the chains over all SMs.
+// Where the lanes' warps leave the card's 528 schedulers idle, the GLV
+// ladders and ladder_w3 spread each lane over a group of G threads that run
+// a formula's independent products side by side (g1.cuh), which shortens
+// the chain; where they do not, G = 1 and the chain runs in one thread.
+// The caller picks G by width (ops/cuda_g1.ladder_glv_group, ladder_group).
+// At G = 1 the point formulas are called through `__noinline__` shims (an
+// iteration holds up to six point operations, and one shared body each
+// keeps the build at seconds; see fq.cuh on fq_mul); at G > 1 the group
+// formulas are inlined into the loop (stack 864 -> 40 bytes for ladder_w3,
+// 10 % faster on an H100 than through shims; PERF.md).
 //
 // Tables: table 1 of the GLV ladders ({1..7} or {1..15} times +-P, 1,008 or
 // 2,160 bytes a thread) is indexed by a run-time digit and therefore lives
-// in local memory. Table 2, the endomorphism image (beta*X, +-Y, Z), is not
+// in local memory, one copy per thread at every G (a group's threads hold
+// the same values). Table 2, the endomorphism image (beta*X, +-Y, Z), is not
 // stored: the selected table-1 entry is mapped when it is needed (one
 // Montgomery product and one conditional negation per add), which halves the
-// local memory. ladder_w3 reads its table, built by the caller, from global
+// local memory (storing beta*X of each entry instead read 1 to 5 % slower on
+// an H100 at the table's width; PERF.md). ladder_w3 reads its table, built by the caller, from global
 // memory at the selected entry.
 //
 // Tensors arrive in the package's layout: 32-bit containers holding 16-bit
@@ -100,9 +105,52 @@ __device__ __forceinline__ void jac_store(uint32_t* __restrict__ ox, uint32_t* _
   fq_store(oz, stride, a.z);
 }
 
+// How a ladder loop calls its point formulas: G = 1 through the shims above,
+// G > 1 with the group formulas inlined (see the head of this file).
+template <int G>
+__device__ __forceinline__ void grp_dbl(Jac& p, int q) {
+  if constexpr (G == 1) {
+    lad_dbl(p);
+  } else {
+    p = jac_dbl_g<G>(p, q);
+  }
+}
+
+template <int G>
+__device__ __forceinline__ void grp_add(Jac& acc, const Jac& b, int q) {
+  if constexpr (G == 1) {
+    lad_add(acc, b);
+  } else {
+    acc = jac_add_g<G, false>(acc, b, q);
+  }
+}
+
+template <int G>
+__device__ __forceinline__ void grp_madd(Jac& out, const Jac& p, const Fq& qx, const Fq& qy, bool qinf,
+                                         int q) {
+  if constexpr (G == 1) {
+    lad_madd<false>(out, p, qx, qy, qinf);
+  } else {
+    jac_madd_g<G, false>(out, p, qx, qy, qinf, q);
+  }
+}
+
+// Whether a warp runs a lane's branch: the lane's own condition at G = 1;
+// at G > 1 whether any group of the warp needs it, so every shuffle of the
+// group formulas meets the full warp (each group then keeps its own result).
+template <int G>
+__device__ __forceinline__ bool warp_takes(bool lane_needs) {
+  if constexpr (G == 1) {
+    return lane_needs;
+  } else {
+    return __any_sync(FULL_WARP, lane_needs);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // ladder_glv_w3 / ladder_glv_w4: k*P = k1*P + k2*phi(P), phi(X, Y, Z) =
-// (beta*X, Y, Z), with |k1| < 2^129 signed and 0 <= k2 < 2^128.
+// (beta*X, Y, Z), with |k1| < 2^129 signed and 0 <= k2 < 2^128, G threads a
+// lane.
 //
 // px, py (24, m) affine Montgomery; inf, neg (m,) flags (neg = sign of k1);
 // s1, s2 (9, m) limbs of |k1|, k2 -> ox, oy, oz (24, m).
@@ -112,9 +160,19 @@ __device__ __forceinline__ void jac_store(uint32_t* __restrict__ ox, uint32_t* _
 // where table 1 was negated, because k2 is never negative. Then ITERS times:
 // W doublings, one table-1 add by the digit of k1, one table-2 add by the
 // digit of k2, digits at bit TOP - W*i. A zero digit adds nothing.
+//
+// A lane's chain is the table (2^(W-1) - 1 doublings and mixed adds, of 7
+// and 11 products) and ITERS * (7W + 2 * 16 + 1) products; at G = 4 the
+// group formulas cut each doubling to 3 rounds and each add to 5. Thread t serves lane t / G
+// as thread t % G; the G threads of a lane read the point and the scalars
+// as one broadcast load, and each stores its share of the result; a thread
+// past m computes lane m - 1 again and stores nothing. The digits are the
+// lane's, so a group agrees on them; at G > 1 a warp runs each table add
+// when any of its groups has a non-zero digit, and keeps it only in those
+// groups.
 // ---------------------------------------------------------------------------
 
-template <int W>
+template <int W, int G>
 __global__ void __launch_bounds__(LADDER_THREADS)
 ladder_glv_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
                   const int32_t* __restrict__ inf, const int32_t* __restrict__ neg,
@@ -124,8 +182,10 @@ ladder_glv_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ 
   constexpr int ENTRIES = (1 << W) - 1;
   constexpr int ITERS = W == 3 ? 43 : 33;
   constexpr int TOP = W == 3 ? 126 : 128;
-  const int i = blockIdx.x * LADDER_THREADS + threadIdx.x;
-  if (i >= m) return;
+  const int t = blockIdx.x * LADDER_THREADS + threadIdx.x;
+  const int lane = t / G, q = t % G;
+  if (G == 1 && lane >= m) return;  // no shuffles at G = 1
+  const int i = lane < m ? lane : m - 1;
   const size_t stride = (size_t)m;
 
   const Fq bx = fq_load(px + i, stride);
@@ -141,29 +201,35 @@ ladder_glv_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ 
   tab[0] = jac_lift(bx, by, binf);
 #pragma unroll 1
   for (int k = 1; k < (1 << (W - 1)); ++k) {
-    Jac t = tab[k - 1];
-    lad_dbl(t);
-    tab[2 * k - 1] = t;
-    lad_madd<false>(tab[2 * k], t, bx, by, binf);
+    Jac t2 = tab[k - 1];
+    grp_dbl<G>(t2, q);
+    tab[2 * k - 1] = t2;
+    grp_madd<G>(tab[2 * k], t2, bx, by, binf, q);
   }
 
   Jac acc = jac_zero();
 #pragma unroll 1
   for (int it = 0; it < ITERS; ++it) {
 #pragma unroll 1
-    for (int k = 0; k < W; ++k) lad_dbl(acc);
+    for (int k = 0; k < W; ++k) grp_dbl<G>(acc, q);
     const int bitpos = TOP - W * it;
     const uint32_t d1 = k1.digit(bitpos, W);
     const uint32_t d2 = k2.digit(bitpos, W);
-    if (d1 != 0u) lad_add(acc, tab[d1 - 1]);
-    if (d2 != 0u) {
-      Jac t = tab[d2 - 1];
-      t.x = fq_mul(t.x, beta);
-      if (ng) t.y = fq_neg(t.y);
-      lad_add(acc, t);
+    if (warp_takes<G>(d1 != 0u)) {
+      Jac sum = acc;
+      grp_add<G>(sum, tab[d1 != 0u ? d1 - 1 : 0], q);
+      if (d1 != 0u) acc = sum;
+    }
+    if (warp_takes<G>(d2 != 0u)) {
+      Jac t2 = tab[d2 != 0u ? d2 - 1 : 0];
+      t2.x = fq_mul(t2.x, beta);
+      if (ng) t2.y = fq_neg(t2.y);
+      Jac sum = acc;
+      grp_add<G>(sum, t2, q);
+      if (d2 != 0u) acc = sum;
     }
   }
-  jac_store(ox + i, oy + i, oz + i, stride, acc);
+  if (lane < m) jac_store_share<G>(ox + i, oy + i, oz + i, stride, acc, q);
 }
 
 // ---------------------------------------------------------------------------
@@ -188,29 +254,6 @@ ladder_glv_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ 
 // result; a thread past m computes lane m - 1 again and stores nothing.
 // ---------------------------------------------------------------------------
 
-// How the loop calls its two formulas. G = 1 goes through the shims lad_dbl
-// and lad_add, as the GLV ladders do (the one-thread kernel); G > 1 has the group
-// formulas inlined into the loop, which drops the stack frame from 864 to 40
-// bytes and ran 10 % faster on an H100 than through __noinline__ shims
-// (PERF.md).
-template <int G>
-__device__ __forceinline__ void w3_dbl(Jac& p, int q) {
-  if constexpr (G == 1) {
-    lad_dbl(p);
-  } else {
-    p = jac_dbl_g<G>(p, q);
-  }
-}
-
-template <int G>
-__device__ __forceinline__ void w3_add(Jac& acc, const Jac& b, int q) {
-  if constexpr (G == 1) {
-    lad_add(acc, b);
-  } else {
-    acc = jac_add_g<G, false>(acc, b, q);
-  }
-}
-
 template <int G>
 __global__ void __launch_bounds__(LADDER_THREADS)
 ladder_w3_kernel(const uint32_t* __restrict__ table, const uint32_t* __restrict__ sc,
@@ -227,16 +270,16 @@ ladder_w3_kernel(const uint32_t* __restrict__ table, const uint32_t* __restrict_
 #pragma unroll 1
   for (int it = 0; it < 85; ++it) {
 #pragma unroll 1
-    for (int j = 0; j < 3; ++j) w3_dbl<G>(acc, q);
+    for (int j = 0; j < 3; ++j) grp_dbl<G>(acc, q);
     const uint32_t d = k.digit(252 - 3 * it, 3);
-    if (G == 1 ? d != 0u : __any_sync(FULL_WARP, d != 0u)) {
+    if (warp_takes<G>(d != 0u)) {
       const uint32_t* e = table + (size_t)(d != 0u ? d - 1 : 0) * 72 * stride + i;
       Jac b;
       b.x = fq_load(e, stride);
       b.y = fq_load(e + 24 * stride, stride);
       b.z = fq_load(e + 48 * stride, stride);
       Jac sum = acc;
-      w3_add<G>(sum, b, q);
+      grp_add<G>(sum, b, q);
       if (d != 0u) acc = sum;
     }
   }
@@ -280,26 +323,36 @@ using namespace curdle;
 extern "C" {
 
 // w: 3 or 4. beta: 12 host words, the endomorphism constant in Montgomery
-// form, little-endian 32-bit words.
+// form, little-endian 32-bit words. group: threads a lane, 1, 2 or 4;
+// blocks of LADDER_THREADS, at least m * group threads in all.
 int curdle_ladder_glv(int w, const void* px, const void* py, const void* inf, const void* neg,
                       const void* s1, const void* s2, const uint32_t* beta, void* ox, void* oy,
-                      void* oz, int m, void* stream) {
+                      void* oz, int m, int group, int blocks, void* stream) {
+  if (m < 1 || (long long)blocks * LADDER_THREADS < (long long)m * group)
+    return (int)cudaErrorInvalidValue;
   Fq b;
   for (int k = 0; k < FQ_WORDS; ++k) b.v[k] = beta[k];
-  const int blocks = (m + LADDER_THREADS - 1) / LADDER_THREADS;
   cudaStream_t st = (cudaStream_t)stream;
-#define CURDLE_GLV_ARGS                                                                     \
-  (const uint32_t*)px, (const uint32_t*)py, (const int32_t*)inf, (const int32_t*)neg,       \
-      (const uint32_t*)s1, (const uint32_t*)s2, b, (uint32_t*)ox, (uint32_t*)oy,            \
-      (uint32_t*)oz, m
-  if (w == 3) {
-    ladder_glv_kernel<3><<<blocks, LADDER_THREADS, 0, st>>>(CURDLE_GLV_ARGS);
-  } else if (w == 4) {
-    ladder_glv_kernel<4><<<blocks, LADDER_THREADS, 0, st>>>(CURDLE_GLV_ARGS);
+#define CURDLE_GLV_LAUNCH(W, G)                                                                  \
+  ladder_glv_kernel<W, G><<<blocks, LADDER_THREADS, 0, st>>>(                                    \
+      (const uint32_t*)px, (const uint32_t*)py, (const int32_t*)inf, (const int32_t*)neg,        \
+      (const uint32_t*)s1, (const uint32_t*)s2, b, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, m)
+  if (w == 3 && group == 1) {
+    CURDLE_GLV_LAUNCH(3, 1);
+  } else if (w == 3 && group == 2) {
+    CURDLE_GLV_LAUNCH(3, 2);
+  } else if (w == 3 && group == 4) {
+    CURDLE_GLV_LAUNCH(3, 4);
+  } else if (w == 4 && group == 1) {
+    CURDLE_GLV_LAUNCH(4, 1);
+  } else if (w == 4 && group == 2) {
+    CURDLE_GLV_LAUNCH(4, 2);
+  } else if (w == 4 && group == 4) {
+    CURDLE_GLV_LAUNCH(4, 4);
   } else {
     return (int)cudaErrorInvalidValue;
   }
-#undef CURDLE_GLV_ARGS
+#undef CURDLE_GLV_LAUNCH
   return (int)cudaGetLastError();
 }
 

@@ -16,12 +16,12 @@ imported.
 `point_op` and the ladders are bound by operations, not bytes: a complete
 Jacobian add is 16 Montgomery products (300 32-bit multiplies each) on 6
 field elements read and 3 written, and a ladder chains 2,300 to 4,600 such
-products per lane between reading a point and writing one. One thread
-computes one lane, except in `point_op` and `ladder_w3`: there a group of
-`group` threads (1, 2 or 4, `GROUPS`) serves a lane and runs each formula's
-independent products side by side (csrc/g1.cuh); `point_group(m, body)` and
-`ladder_group(m)` pick it from the width, and the wrappers compute the grid
-(`launch_blocks`).
+products per lane between reading a point and writing one. In `point_op`,
+`ladder_w3` and the GLV ladders a group of `group` threads (1, 2 or 4,
+`GROUPS`) serves a lane and runs each formula's independent products side by
+side (csrc/g1.cuh); `point_group(m, body)`, `ladder_group(m)` and
+`ladder_glv_group(m, w)` pick it from the width, and the wrappers compute the
+grid (`launch_blocks`). `ladder_w1` runs one thread a lane.
 
 Every wrapper launches on `torch.cuda.current_stream()`, allocates its outputs
 with `torch.empty`, raises on a non-zero return, and adds one to its entry in
@@ -72,7 +72,7 @@ ENTRY_POINTS = {
         "curdle_point_op": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "ladders.cu": {
-        "curdle_ladder_glv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+        "curdle_ladder_glv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         "curdle_ladder_w3": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
         "curdle_ladder_w1": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
     },
@@ -100,8 +100,8 @@ launch_counts: Dict[str, int] = {k: 0 for k in KERNEL_NAMES}
 # over 15-entry tables. The JAX package's knob, under its name.
 GLV_W = int(os.environ.get("CURDLEPROOFS_GLV_W", "3"))
 
-# Threads a lane that the point kernel (csrc/kernels.cu) and ladder_w3
-# (csrc/ladders.cu) are built for, and their block widths there.
+# Threads a lane that the point kernel (csrc/kernels.cu), ladder_w3 and the
+# GLV ladders (csrc/ladders.cu) are built for, and their block widths there.
 GROUPS = (1, 2, 4)
 POINT_THREADS = 128
 LADDER_THREADS = 32
@@ -221,17 +221,22 @@ def check_launch(name: str, rc: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-# Thread groups by width, from chip_smoke.py's group sweeps on an NVIDIA H100
-# 80GB HBM3 at 700 W (PERF.md). One warp of this arithmetic keeps its
-# warp scheduler nearly busy, so a group pays while the lanes' warps leave
-# schedulers idle (528 on the card) and costs once they do not: it runs up
-# to 1.5x the products (a thread with no product of its own in a round
-# repeats one), every thread redoes the additions, and the products are
-# swapped by shuffles.
+# Thread groups by width, from chip_smoke.py's group sweeps of point_op,
+# ladder_w3 and the GLV ladders on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md). A group shortens a lane's chain of dependent products and
+# multiplies the warps, at the price of more work a lane: up to 1.5x the
+# products (a thread with no product of its own in a round repeats one), the
+# additions every thread redoes, and the shuffles that swap the products. So
+# it pays while the lanes' warps leave the card's 528 schedulers short of
+# work: G = 4 up to about one warp a scheduler, G = 2 for the GLV ladders up
+# to about two.
 # point_op: body -> (widest m for G = 4, widest m for G = 2); G = 1 beyond.
 POINT_GROUP_LIMITS = {"jadd": (8192, 16384), "jdbl": (2560, 8192), "jmadd": (2560, 16384)}
-# ladder_w3: (widest m for G = 4, widest m for G = 2); G = 1 beyond.
-LADDER_GROUP_LIMITS = (4096, 8192)
+# ladder_w3: (widest m for G = 4, widest m for G = 2); G = 1 beyond (G = 2
+# past 8,192 lanes is not measured).
+LADDER_GROUP_LIMITS = (8192, 8192)
+# the GLV ladders: window width -> (widest m for G = 4, widest m for G = 2).
+GLV_GROUP_LIMITS = {3: (8192, 16384), 4: (8192, 16384)}
 
 
 def point_group(m: int, body: str = "jadd") -> int:
@@ -243,6 +248,12 @@ def point_group(m: int, body: str = "jadd") -> int:
 def ladder_group(m: int) -> int:
     """Threads a lane for `ladder_w3` at m lanes."""
     four, two = LADDER_GROUP_LIMITS
+    return 4 if m <= four else 2 if m <= two else 1
+
+
+def ladder_glv_group(m: int, w: int) -> int:
+    """Threads a lane for the GLV ladder of window width w at m lanes."""
+    four, two = GLV_GROUP_LIMITS[w]
     return 4 if m <= four else 2 if m <= two else 1
 
 
@@ -366,18 +377,22 @@ def _ladder_outputs(like: torch.Tensor, m: int):
     return [torch.empty((24, m), dtype=torch.int32, device=like.device) for _ in range(3)]
 
 
-def scalar_mul_glv(points, s1, neg1, s2, w: Optional[int] = None):
+def scalar_mul_glv(points, s1, neg1, s2, w: Optional[int] = None, group: Optional[int] = None):
     """Launch the GLV dual-table ladder: per lane k*P = k1*P + k2*phi(P).
 
     points: APoints of (24, *B) CUDA coords; s1, s2: (9, *B) int32 limbs of
     |k1|, k2; neg1: (*B,) sign of k1 (as `ops.glv.decompose` returns them);
-    w: window width 3 or 4 (default GLV_W). Returns Jacobian (24, *B)."""
+    w: window width 3 or 4 (default GLV_W); group: threads a lane (default
+    `ladder_glv_group(m, w)`). Returns Jacobian (24, *B)."""
     from curdleproofs_tpu_torch.ops.g1 import JPoints
 
     w = GLV_W if w is None else w
     if w not in (3, 4):
         raise ValueError(f"scalar_mul_glv: window width must be 3 or 4, got {w}")
+    if group is not None:
+        check_group("scalar_mul_glv", group)
     px, py, shape, m = _ladder_base("scalar_mul_glv", points)
+    group = ladder_glv_group(m, w) if group is None else group
     k1 = s1.reshape(9, -1).contiguous()
     k2 = s2.reshape(9, -1).contiguous()
     check_tensor("scalar_mul_glv s1", k1, (9, m))
@@ -390,7 +405,7 @@ def scalar_mul_glv(points, s1, neg1, s2, w: Optional[int] = None):
             rc = lib().curdle_ladder_glv(
                 w, px.data_ptr(), py.data_ptr(), inf.data_ptr(), neg.data_ptr(),
                 k1.data_ptr(), k2.data_ptr(), ctypes.cast(_beta_words(), ctypes.c_void_p),
-                *(o.data_ptr() for o in outs), m, stream_ptr(),
+                *(o.data_ptr() for o in outs), m, group, launch_blocks(m, group, LADDER_THREADS), stream_ptr(),
             )
         check_launch(f"ladder_glv_w{w}", rc)
         launch_counts[f"ladder_glv_w{w}"] += 1

@@ -228,18 +228,30 @@ def ladder_lanes(card):
     return og.pack_points(pts, card), sc, want
 
 
+_GLV_PLAIN = {}
+
+
+@pytest.mark.parametrize("lanes", [5, 64])
+@pytest.mark.parametrize("group", ["picked", 1, 2, 4])
 @pytest.mark.parametrize("w", [3, 4])
-def test_ladder_glv(ladder_lanes, card, w):
+def test_ladder_glv(ladder_lanes, card, w, group, lanes):
+    """The GLV ladder at both window widths and every thread group (the
+    wrapper's pick through og.scalar_mul_glv): bit-equal to the plain
+    ladder, equal to the host's k * P, one launch."""
     ap, sc, want = ladder_lanes
-    s1, neg1, s2 = oglv.decompose(sc.astype(np.uint64))
-    assert neg1.any() and not neg1.all()
+    ap = og.APoints(ap.x[:, :lanes].contiguous(), ap.y[:, :lanes].contiguous(), ap.inf[:lanes].contiguous())
+    s1, neg1, s2 = oglv.decompose(np.ascontiguousarray(sc[:, :lanes]).astype(np.uint64))
+    if lanes == 64:
+        assert neg1.any() and not neg1.all()
     args = (ap, from_reference(s1, card), from_reference(neg1, card), from_reference(s2, card))
+    if (w, lanes) not in _GLV_PLAIN:
+        _GLV_PLAIN[(w, lanes)] = og._scalar_mul_glv_plain(*args, w=w)
     name = f"ladder_glv_w{w}"
     before = cuda_g1.launch_counts[name]
-    got = og.scalar_mul_glv(*args, w=w)
+    got = og.scalar_mul_glv(*args, w=w) if group == "picked" else cuda_g1.scalar_mul_glv(*args, w=w, group=group)
     assert cuda_g1.launch_counts[name] == before + 1
-    assert _equal(got, og._scalar_mul_glv_plain(*args, w=w))
-    assert og.jpoints_to_host(got) == want
+    assert _equal(got, _GLV_PLAIN[(w, lanes)])
+    assert og.jpoints_to_host(got) == want[:lanes]
 
 
 def test_ladder_w3_and_w1(ladder_lanes, card):

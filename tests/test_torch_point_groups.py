@@ -1,6 +1,8 @@
-"""Thread groups of the point kernel and of ladder_w3 (ops.cuda_g1): the launch
-geometry covers every lane exactly once, the wrappers refuse a group that
-was not built, and the plain formulas the kernels are held against equal the
+"""Thread groups of the point kernel, of ladder_w3 and of the GLV ladders
+(ops.cuda_g1): the launch geometry covers every lane exactly once, the
+picks shrink the group as the width grows, the wrappers refuse a group that
+was not built, the GLV ladder's C entry point is bound with its group and
+grid, and the plain formulas the kernels are held against equal the
 JAX package's, limb for limb, at a ragged width with one lane in each
 branch. CPU only (the kernels themselves: tests/test_torch_cuda_kernels.py
 on a card)."""
@@ -25,7 +27,12 @@ POINT_BODIES = ("jadd", "jdbl", "jmadd")
 # block width -> the groups its wrapper picks at m lanes
 PICKS = {
     cuda_g1.POINT_THREADS: lambda m: {cuda_g1.point_group(m, b) for b in POINT_BODIES},
-    cuda_g1.LADDER_THREADS: lambda m: {cuda_g1.ladder_group(m)},
+    cuda_g1.LADDER_THREADS: lambda m: {cuda_g1.ladder_group(m)} | {cuda_g1.ladder_glv_group(m, w) for w in (3, 4)},
+}
+LADDER_PICKS = {
+    "ladder": cuda_g1.ladder_group,
+    "glv3": lambda m: cuda_g1.ladder_glv_group(m, 3),
+    "glv4": lambda m: cuda_g1.ladder_glv_group(m, 4),
 }
 
 
@@ -54,9 +61,9 @@ def test_groups_cover_every_lane_once(threads, group, m):
         assert np.minimum(lane[~stores], m - 1).tolist() == [m - 1] * int((~stores).sum())
 
 
-@pytest.mark.parametrize("pick", ("ladder",) + POINT_BODIES)
+@pytest.mark.parametrize("pick", tuple(LADDER_PICKS) + POINT_BODIES)
 def test_picks_shrink_the_group_as_the_width_grows(pick):
-    fn = cuda_g1.ladder_group if pick == "ladder" else lambda m: cuda_g1.point_group(m, pick)
+    fn = LADDER_PICKS.get(pick) or (lambda m: cuda_g1.point_group(m, pick))
     groups = [fn(m) for m in (1, 124, 5120, 8192, 20480, 40960, 81910, 1 << 20)]
     assert all(g in cuda_g1.GROUPS for g in groups)
     assert groups == sorted(groups, reverse=True)
@@ -72,6 +79,23 @@ def test_wrappers_reject_a_group_not_built(group):
     pts = tog.pack_points([G1()] * 5, "cpu")
     with pytest.raises(ValueError, match="group"):
         cuda_g1.scalar_mul(pts, torch.zeros((16, 5), dtype=torch.int32), group)
+    half = torch.zeros((9, 5), dtype=torch.int32)
+    for w in (3, 4):
+        with pytest.raises(ValueError, match="group"):
+            cuda_g1.scalar_mul_glv(pts, half, torch.zeros(5, dtype=torch.int32), half, w=w, group=group)
+
+
+def test_glv_entry_point_takes_the_group_and_the_grid():
+    """curdle_ladder_glv(w, px, py, inf, neg, s1, s2, beta, ox, oy, oz, m,
+    group, blocks, stream), as csrc/ladders.cu declares it: ints where the C
+    side has int, pointers (64 bits) elsewhere."""
+    P, I = cuda_g1.ctypes.c_void_p, cuda_g1.ctypes.c_int
+    assert cuda_g1.ENTRY_POINTS["ladders.cu"]["curdle_ladder_glv"] == [I] + [P] * 10 + [I, I, I, P]
+    src = (cuda_g1.CSRC_DIR / "ladders.cu").read_text()
+    decl = src[src.index("int curdle_ladder_glv(") : src.index("{", src.index("int curdle_ladder_glv("))]
+    args = [a.strip() for a in decl[decl.index("(") + 1 : decl.rindex(")")].split(",")]
+    assert [("int " in a and "*" not in a) for a in args] == [t is I for t in cuda_g1.ENTRY_POINTS["ladders.cu"]["curdle_ladder_glv"]]
+    assert args[-4:] == ["int m", "int group", "int blocks", "void* stream"]
 
 
 # A ragged width with every branch of the formulas in one 8-lane stretch (one

@@ -12,19 +12,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
   device     card name and power limit (nvidia-smi), kernel build time, the
              native host library's build time and OpenMP threads
   kernels    the nine kernels vs their plain versions at small shapes with
-             edge lanes (point_op, ladder_w3 and the GLV ladders at every
-             thread group G = 1, 2, 4; identity, P+P, P+(-P), a forced
-             p == q collision in
+             edge lanes (point_op and the four ladders at every thread group
+             G = 1, 2, 4; identity, P+P, P+(-P), a forced p == q collision in
              scan_sel at split 1 and at the default split, the two equal as
-             points; empty and repeated selection slots, out-of-range gather
+             points; scan_full the same, with a lane of one point at every
+             step; empty and repeated selection slots, out-of-range gather
              indices, a ragged M, shared and per-window tables, both gather
              layouts; rowwise_gather at one group with a ragged M and
              at the three stage shapes of the routed gather, per chunk of two
              windows and with all windows in one launch, routed_gather
              against packed[:, src]; for the four ladders 256 lanes with the edge
              scalars 0, 1, r-1, lambda, lambda+-1, 2^128, 14*lambda, ..., an
-             identity base, two equal bases, negative k1, all three
-             coordinates and the host's P*s) — integer equality
+             identity base, two equal bases, negative k1, for ladder_w1 also
+             r+2 (its last add doubles), all three coordinates and the host's
+             P*s) — integer equality
   host_native  msm_prep_batch at n = 2^16, c = 13, L = 512 array-equal to the
              numpy chain, and both times
   msm_2e16   msm() at n = 2^16: bases P_i = (a + i*d + i^2*e)*G, uniform scalars;
@@ -53,7 +54,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
   kernel_times  each kernel at the shapes the phases above give it vs its
              plain version (equality), timed with CUDA events, beside the
              least time the card could take; scan_sel at every split (the
-             `split_sweep`, lane totals on a sample as points); gather_u32
+             `split_sweep`, lane totals on a sample as points); scan_full at
+             every split, two rounds in turns, each bit-equal to the plain
+             version at its split (its `split_sweep`); gather_u32
              with its record-major copy, the copy and the kernel alone, the
              other layout, torch.gather and torch.index_select, both layouts
              at the sorted-order gather of n/4 and n/2 (`layout_probe`), and the
@@ -66,8 +69,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              every thread group in turns, bit-equal to plain, with CUDA-graph
              device times, bounds, launches per msm() and the group the
              wrapper picks (`group_sweep`); ladder_w3 alone at the two vector
-             widths, and each GLV ladder alone at 124, 1,024, 4,096, 6,144,
-             8,192, 12,288 and 16,383 lanes, at every group the same way.
+             widths, ladder_w1 at 124, 1,024, 2,048, 3,072, 4,096, 6,144,
+             8,192 and 16,383 lanes, and each GLV ladder alone at 124, 1,024,
+             4,096, 6,144, 8,192, 12,288 and 16,383 lanes, at every group the
+             same way.
              Launch counts are those of
              the eight main-path phases above: set to 0 just before each,
              read just after it
@@ -83,7 +88,8 @@ a tiny size on the CPU with the plain versions, to find faults without a
 card; it prints no result and exits 2. `--product-variants` adds a phase
 after kernel_times: the sources built once per entry of PRODUCT_VARIANTS
 (the field arithmetic on carry chains, the default; the arithmetic before
-it, cios64; by reference; inlined; scan_sel's registers not capped),
+it, cios64; by reference; inlined; each scan with the other's register
+cap),
 the compilers side by side, each build's ptxas figures, nvcc seconds and
 machine instructions (and those of one fq_mul and one fq_sqr), and all
 nine kernels (scan_sel also at split 1, point_op also at group 1, the GLV
@@ -314,23 +320,33 @@ def ladder_calls(ap, sc, dev):
 def ladder_edge_checks(bases, dev, rng, m):
     """The four ladders on m lanes: the edge scalars on lanes of their own,
     an identity base, two equal bases, uniform scalars on the rest (about
-    half of those have a negative k1). Each kernel against its plain version
-    on all three coordinates, and against the host's P * s."""
+    half of those have a negative k1); for ladder_w1 one more lane has the
+    scalar r + 2, whose last step adds P to P (the complete add's doubling).
+    Each kernel against its plain version on all three coordinates, at every
+    thread group, and against the host's P * s."""
     edges = list(oglv.EDGE_SCALARS)
     ks = edges + [rand_scalar(rng) for _ in range(m - len(edges))]
     pts = list(bases[:m])
     pts[len(edges)] = G1.identity()
     pts[len(edges) + 2] = pts[len(edges) + 1]
-    want = [p * Fr(k) for p, k in zip(pts, ks)]
+    ks_w1 = list(ks)
+    ks_w1[len(edges) + 3] = FR_MOD + 2
     ap = og.pack_points(pts, dev)
     sc = np.asarray(ints_to_limbs(ks, 16), dtype=np.uint32)
     calls, (s1, neg1, s2) = ladder_calls(ap, sc, dev)
     sc_d = from_reference(sc, dev)
+    sc_w1 = from_reference(np.asarray(ints_to_limbs(ks_w1, 16), dtype=np.uint32), dev)
+    calls["ladder_w1"] = (
+        lambda: og.scalar_mul_w1(ap, sc_w1),
+        lambda: og._scalar_mul_plain(ap, sc_w1, acc0=og._jzero(ap.x)),
+    )
+    want = {name: [p * Fr(k) for p, k in zip(pts, ks_w1 if name == "ladder_w1" else ks)] for name in calls}
     glv_args = (ap, from_reference(s1, dev), from_reference(neg1, dev), from_reference(s2, dev))
     by_group_calls = {  # name -> (call at thread group g, the group the wrapper picks)
         "ladder_w3": (lambda g: cuda_g1.scalar_mul(ap, sc_d, g), cuda_g1.ladder_group(m)),
         **{f"ladder_glv_w{w}": (lambda g, w=w: cuda_g1.scalar_mul_glv(*glv_args, w=w, group=g),
                                 cuda_g1.ladder_glv_group(m, w)) for w in (3, 4)},
+        "ladder_w1": (lambda g: cuda_g1.scalar_mul_w1(ap, sc_w1, g), cuda_g1.ladder_w1_group(m)),
     }
     out = {"m": m, "negative_k1_lanes": int(neg1.sum())}
     for name, (got_fn, want_fn) in calls.items():
@@ -340,7 +356,7 @@ def ladder_edge_checks(bases, dev, rng, m):
         plain, plain_ms = wall_ms(want_fn, dev)
         out[name] = {
             "equal": max_abs_err(list(got), list(plain)) == 0,
-            "host_check": og.jpoints_to_host(got) == want,
+            "host_check": og.jpoints_to_host(got) == want[name],
             "launched": launched,
             "ms": cuda_ms(got_fn, 3) if dev.type == "cuda" else ms_first,
             "plain_ms": plain_ms,
@@ -514,18 +530,33 @@ def phase_kernels(bases, dev, rng, m_ladder, route_shape):
     out["scan_sel"]["window1_points_equal_split1"] = all(
         same_points(a[:, 1], b[:, 1]) for a, b in zip(by_split[k_main][:2], by_split[1][:2])
     )
-    got = ostream.scan_records(rec, W, T, L)
-    want = ostream.scan_records_ref(rec, W, T, L)
-    out["scan_full"] = {
-        "equal": max_abs_err(list(got), list(want)) == 0,
-        "ms": cuda_ms(lambda: ostream.scan_records(rec, W, T, L), 3)
-        if dev.type == "cuda"
-        else None,
-        "plain_ms": wall_ms(lambda: ostream.scan_records_ref(rec, W, T, L), dev)[1],
-    }
+    # the complete scan on the same records with lane 9 of window 1 one point
+    # at every step (the complete add doubles in phases A, B and C), at split
+    # 1 and at the default split: bit-equal to the plain version at the same
+    # split, every prefix and total the same point at both
+    rec_f = rec.reshape(49, W, T, L).clone()
+    rec_f[:, 1, :, 9] = rec_f[:, 1, :1, 9]
+    rec_f = rec_f.reshape(49, W * T * L).contiguous()
+    by_split = {}
+    for name, k in (("scan_full_split1", 1), ("scan_full", k_main)):
+        got = ostream.scan_records(rec_f, W, T, L, split=k)
+        want = ostream.scan_records_ref(rec_f, W, T, L, split=k)
+        by_split[k] = got
+        out[name] = {
+            "split": k,
+            "equal": max_abs_err(list(got), list(want)) == 0,
+            "ms": cuda_ms(lambda k=k: ostream.scan_records(rec_f, W, T, L, split=k), 3)
+            if dev.type == "cuda"
+            else None,
+            "plain_ms": wall_ms(lambda k=k: ostream.scan_records_ref(rec_f, W, T, L, split=k), dev)[1],
+        }
+    out["scan_full"]["points_equal_split1"] = all(
+        same_points(a, b) for a, b in zip(by_split[k_main], by_split[1])
+    )
     out["ladders"] = lad = ladder_edge_checks(bases, dev, rng, m_ladder)
     emit(out)
-    bad = [k for k in ("gather_u32", "scan_sel", "scan_sel_split1", "scan_full") if not out[k]["equal"]]
+    bad = [k for k in ("gather_u32", "scan_sel", "scan_sel_split1", "scan_full", "scan_full_split1")
+           if not out[k]["equal"]]
     bad += [f"point_op[{k}]" for k, v in point.items() if not v["equal"]]
     for k, v in lad.items():
         if isinstance(v, dict):
@@ -539,6 +570,8 @@ def phase_kernels(bases, dev, rng, m_ladder, route_shape):
         bad.append("scan_sel flags")
     if not out["scan_sel"]["window1_points_equal_split1"]:
         bad.append("scan_sel split vs split 1 as points")
+    if not out["scan_full"]["points_equal_split1"]:
+        bad.append("scan_full split vs split 1 as points")
     bad += [f"rowwise_gather[{k}]" for k, v in rowwise.items() if v["max_abs_err"] != 0]
     if dev.type == "cuda" and any(v.get("launched", 1) != 1 for v in rowwise.values()):
         fail("rowwise_gather: the wrapper did not launch its kernel once per call")
@@ -1132,12 +1165,39 @@ def point_group_sweep(widths, launches, p_src, q_src, packed, dev, timer):
     return out
 
 
+def w1_products(sc_m) -> int:
+    """Montgomery products ladder_w1 needs on these (16, m) scalar limbs: a
+    doubling a bit, one mixed add per set bit."""
+    m = sc_m.shape[1]
+    set_bits = int(np.count_nonzero(omsm.host_digits(sc_m, 1, bits=255)))
+    return m * 255 * MONT_PER_OP["dbl"] + set_bits * MONT_PER_OP["madd"]
+
+
 def w3_products(sc_m) -> int:
     """Montgomery products ladder_w3 needs on these (16, m) scalar limbs:
     three doublings an iteration, one add per non-zero digit."""
     m = sc_m.shape[1]
     nonzero = int(np.count_nonzero(omsm.host_digits(sc_m, 3, bits=255)))
     return m * 85 * 3 * MONT_PER_OP["dbl"] + nonzero * MONT_PER_OP["jadd"]
+
+
+def ladder_width(fn, want, timer, m, picked, products, nbytes) -> dict:
+    """One width of a ladder's group sweep: fn(g) at each thread group
+    against `want` bit for bit, then timed at each group in turns (two
+    rounds), beside the bound (`products` Montgomery products against
+    `nbytes` moved) and the group the wrapper picks."""
+    res = {
+        "lanes": m,
+        "group_picked": picked,
+        "equal_by_group": {str(g): max_abs_err(list(fn(g)), want) == 0 for g in cuda_g1.GROUPS},
+        "ms_by_group": {str(g): [] for g in cuda_g1.GROUPS},
+        "montgomery_products": products,
+        "bound_ms": max(products * MULS_PER_MONT / INT32_MAD_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+    }
+    for _ in range(2):
+        for g in cuda_g1.GROUPS:
+            res["ms_by_group"][str(g)].append(timer(lambda g=g: fn(g), 3))
+    return res
 
 
 def ladder_group_sweep(bases, sc, dev, timer, widths, want):
@@ -1155,20 +1215,33 @@ def ladder_group_sweep(bases, sc, dev, timer, widths, want):
             fn = lambda g: cuda_g1.ladder_w3(table, sc_m, g)  # noqa: E731
         else:
             fn = lambda g: tuple(og._scalar_mul_w3_plain(ap, sc_m))  # noqa: E731
-        w = [t[:, :m] for t in want]
-        products = w3_products(sc[:, :m])
-        res = {
-            "lanes": m,
-            "group_picked": cuda_g1.ladder_group(m),
-            "equal_by_group": {str(g): max_abs_err(list(fn(g)), w) == 0 for g in cuda_g1.GROUPS},
-            "ms_by_group": {str(g): [] for g in cuda_g1.GROUPS},
-            "montgomery_products": products,
-            "bound_ms": max(products * MULS_PER_MONT / INT32_MAD_PER_S, 4 * m * (7 * 72 + 16 + 72) / HBM_BYTES_PER_S) * 1e3,
-        }
-        for _ in range(2):
-            for g in cuda_g1.GROUPS:
-                res["ms_by_group"][str(g)].append(timer(lambda g=g: fn(g), 3))
-        out[str(m)] = res
+        out[str(m)] = ladder_width(fn, [t[:, :m] for t in want], timer, m, cuda_g1.ladder_group(m),
+                                   w3_products(sc[:, :m]), 4 * m * (7 * 72 + 16 + 72))
+    return out
+
+
+def w1_group_sweep(ap, sc, dev, timer, widths, want):
+    """The ladder_w1 launch at each width, its lanes the n lanes of the
+    affine points `ap` and host scalar limbs `sc` over and over, at each
+    thread group in turns (two rounds), each against `want` (the plain
+    ladder's (24, n) outputs on those n lanes, tiled the same way: a lane's
+    result depends on its own inputs only) bit for bit, beside its bound and
+    the group the wrapper picks."""
+    cuda = dev.type == "cuda"
+    n = sc.shape[1]
+    out = {}
+    for m in widths:
+        take = np.arange(m) % n
+        take_d = torch.from_numpy(take).to(ap.x.device)
+        apm = og.APoints(*(t[..., take_d].contiguous() for t in ap))
+        sc_m = np.ascontiguousarray(sc[:, take])
+        sc_d = from_reference(sc_m, dev)
+        if cuda:
+            fn = lambda g: tuple(cuda_g1.scalar_mul_w1(apm, sc_d, g))  # noqa: E731
+        else:
+            fn = lambda g: tuple(og.scalar_mul_w1(apm, sc_d))  # noqa: E731
+        out[str(m)] = ladder_width(fn, [t[:, take_d] for t in want], timer, m, cuda_g1.ladder_w1_group(m),
+                                   w1_products(sc_m), 4 * m * (48 + 1 + 16 + 72))
     return out
 
 
@@ -1192,19 +1265,8 @@ def glv_group_sweep(ap, halves, w, dev, timer, widths, want):
             fn = lambda g: tuple(cuda_g1.scalar_mul_glv(*args, w=w, group=g))  # noqa: E731
         else:
             fn = lambda g: tuple(og._scalar_mul_glv_plain(*args, w=w))  # noqa: E731
-        products = glv_ladder_products(h1[:, :m], h2[:, :m], w)
-        res = {
-            "lanes": m,
-            "group_picked": cuda_g1.ladder_glv_group(m, w),
-            "equal_by_group": {str(g): max_abs_err(list(fn(g)), [t[:, :m] for t in want]) == 0 for g in cuda_g1.GROUPS},
-            "ms_by_group": {str(g): [] for g in cuda_g1.GROUPS},
-            "montgomery_products": products,
-            "bound_ms": max(products * MULS_PER_MONT / INT32_MAD_PER_S, 4 * m * (48 + 2 + 18 + 72) / HBM_BYTES_PER_S) * 1e3,
-        }
-        for _ in range(2):
-            for g in cuda_g1.GROUPS:
-                res["ms_by_group"][str(g)].append(timer(lambda g=g: fn(g), 3))
-        out[str(m)] = res
+        out[str(m)] = ladder_width(fn, [t[:, :m] for t in want], timer, m, cuda_g1.ladder_glv_group(m, w),
+                                   glv_ladder_products(h1[:, :m], h2[:, :m], w), 4 * m * (48 + 2 + 18 + 72))
     return out
 
 
@@ -1449,7 +1511,25 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_
         ops=madd_ops,
         nbytes=4 * (rec.numel() + 72 * W * T * L + 72 * W * L),
         iters=3,
+        shape=dict(stream_shape, split=k_main),
     )
+    # the complete scan at every split, two rounds in turns (K ascending,
+    # then descending), each bit-equal to the plain version at its split
+    full_sweep = {}
+    splits = [k for k in (1, 2, 4, 8, 16, 32) if k <= T]
+    for k in splits:
+        want_k, plain_ms = (plain_out["scan_full"], None) if k == k_main else wall_ms(
+            lambda k=k: ostream.scan_records_ref(rec, W, T, L, split=k), dev)
+        full_sweep[str(k)] = {
+            "max_abs_err": max_abs_err(list(ostream.scan_records(rec, W, T, L, split=k)), list(want_k)),
+            "plain_ms": plain_ms,
+            "ms": [],
+        }
+        del want_k
+    for rnd in range(2):
+        for k in splits if rnd == 0 else reversed(splits):
+            full_sweep[str(k)]["ms"].append(timer(lambda k=k: ostream.scan_records(rec, W, T, L, split=k), 3))
+    rows[-1]["split_sweep"] = full_sweep
     # the stitch's two gathers, in the layout the wrapper picks and in the
     # other one (the record-major copy included)
     lane_tab = totals  # any (72, W, L) table of valid points serves as offsets
@@ -1474,6 +1554,7 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_
         "gather_u32": (lambda: (ogather.gather_u32_shared(packed, idx_d),), 5, "kernels.cu"),
         "rowwise_gather": (lambda: (ogather.routed_gather(packed, *chunk_tables),), 5, "gather.cu"),
         "scan_full": (lambda: ostream.scan_records(rec, W, T, L), 3, "kernels.cu"),
+        "scan_full_split32": (lambda: ostream.scan_records(rec, W, T, L, split=32), 3, "kernels.cu"),
         "scan_sel": (lambda: ostream.scan_records_sel(rec, sel_d, W, T, L, S), 3, "kernels.cu"),
         "scan_sel_split1": (lambda: ostream.scan_records_sel(rec, sel_d, W, T, L, S, split=1), 3, "kernels.cu"),
         "point_op": (lambda: tuple(cuda_g1.jadd(bl, lo)), 5, "kernels.cu"),
@@ -1507,7 +1588,6 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_
         "ladder_w1": "curdleproofs_tpu/ops/pallas_g1.py:198",
     }
     rows_in = {"ladder_glv_w3": 48 + 2 + 18, "ladder_glv_w4": 48 + 2 + 18, "ladder_w3": 7 * 72 + 16, "ladder_w1": 48 + 1 + 16}
-    dbl, madd = MONT_PER_OP["dbl"], MONT_PER_OP["madd"]
     n_check = min(64, n_vec)
     oracle = {}
     w3_out = None
@@ -1517,11 +1597,13 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_
         calls, (h1, neg_m, h2) = ladder_calls(ap, sc_m, dev)
         if m == n_glv:
             glv_inputs = (ap, (h1, neg_m, h2))
+        if m == n_vec:
+            w1_inputs = (ap, sc_m)
         products = {
             "ladder_glv_w3": glv_ladder_products(h1, h2, 3),
             "ladder_glv_w4": glv_ladder_products(h1, h2, 4),
             "ladder_w3": w3_products(sc_m),
-            "ladder_w1": m * 255 * dbl + int(np.count_nonzero(omsm.host_digits(sc_m, 1, bits=255))) * madd,
+            "ladder_w1": w1_products(sc_m),
         }
         for name, (got_fn, want_fn) in calls.items():
             if lanes[name] != m:
@@ -1551,6 +1633,12 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_
     w3_widths = sorted({n_vec_small, n_vec} | {w for w in LADDER_PROBE_WIDTHS if w < n_vec})
     w3_row.update(group=cuda_g1.ladder_group(n_vec),
                   group_sweep=ladder_group_sweep(bases, sc, dev, timer, w3_widths, w3_out))
+    # ladder_w1 at the vector ops' widths, probe widths between and about
+    # twice the wider one, at every group
+    w1_row = next(r for r in rows if r["name"] == "ladder_w1")
+    w1_widths = sorted({n_vec_small, n_vec, 2 * n_vec - 1} | {w for w in LADDER_PROBE_WIDTHS if w < n_vec})
+    w1_row.update(group=cuda_g1.ladder_w1_group(n_vec),
+                  group_sweep=w1_group_sweep(*w1_inputs, dev, timer, w1_widths, plain_out["ladder_w1"]))
     # the GLV ladders alone at the protocol's widths and the table's, at every group
     glv_widths = sorted({n_glv} | {w for w in GLV_PROBE_WIDTHS if w < n_glv})
     for w in (3, 4):
@@ -1581,7 +1669,8 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_
     pt_sweep = next(r for r in rows if r["name"] == "point_op")["group_sweep"]
     group_bad = [f"point_op[{b}, m={w['m']}, G={g}]" for w in pt_sweep["widths"]
                  for b, v in w["bodies"].items() for g, ok in v["equal_by_group"].items() if not ok]
-    group_bad += [f"{r['name']}[{m}, G={g}]" for r in rows if r["name"] in ("ladder_w3", "ladder_glv_w3", "ladder_glv_w4")
+    group_bad += [f"{r['name']}[{m}, G={g}]" for r in rows
+                  if r["name"] in ("ladder_w3", "ladder_glv_w3", "ladder_glv_w4", "ladder_w1")
                   for m, v in r["group_sweep"].items() for g, ok in v["equal_by_group"].items() if not ok]
     if group_bad:
         fail(f"thread groups disagree with the plain versions: {group_bad}")
@@ -1590,6 +1679,9 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_
     sweep_bad = [k for k, v in sweep.items() if not v["totals_sample_equal"]]
     if sweep_bad:
         fail(f"scan_sel at splits {sweep_bad} disagrees with the default split as points")
+    sweep_bad = [k for k, v in full_sweep.items() if v["max_abs_err"] != 0]
+    if sweep_bad:
+        fail(f"scan_full at splits {sweep_bad} disagrees with its plain version")
     if not all(oracle.values()):
         fail(f"ladders disagree with the discrete-log oracle at the main path's shapes: {oracle}")
     bad = [r["name"] for r in rows if r["max_abs_err"] != 0]
@@ -1679,13 +1771,14 @@ def phase_group_ab(bases, scalars, coef, dev, n_vec, n_vec_small, n_glv, seg):
 # three sources (gather.cu includes no field arithmetic, so its two builds
 # are the same code: their difference is the spread of identical builds);
 # by_reference and inlined change how fq_mul and fq_sqr are called;
-# scan_uncapped lifts scan_sel's register cap.
+# scan_caps_flipped gives each scan the other's register cap (scan_sel
+# uncapped, scan_full capped at 128).
 PRODUCT_VARIANTS = {
     "by_value": ((), ("kernels.cu", "ladders.cu", "gather.cu")),
     "cios64": (("-DCURDLE_FQ_CIOS64",), ("kernels.cu", "ladders.cu", "gather.cu")),
     "by_reference": (("-DCURDLE_FQ_MUL_BY_REF",), ("kernels.cu", "ladders.cu")),
     "inlined": (("-DCURDLE_FQ_MUL_INLINE",), ("kernels.cu", "ladders.cu")),
-    "scan_uncapped": (("-DCURDLE_SCAN_MIN_BLOCKS=1",), ("kernels.cu",)),
+    "scan_caps_flipped": (("-DCURDLE_SCAN_MIN_BLOCKS=1", "-DCURDLE_SCAN_FULL_MIN_BLOCKS=2"), ("kernels.cu",)),
 }
 VARIANT_BUILD_LIMIT_S = 300
 # One call of fq_mul or fq_sqr in a kernel of its own, to count the
@@ -1907,7 +2000,7 @@ def main() -> int:
     ap.add_argument(
         "--product-variants",
         action="store_true",
-        help="after kernel_times, build and time the product's variants (csrc/fq.cuh) and scan_sel's register cap",
+        help="after kernel_times, build and time the product's variants (csrc/fq.cuh) and the scans' register caps",
     )
     args = ap.parse_args()
     if args.ptxas:

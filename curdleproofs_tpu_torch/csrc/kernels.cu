@@ -20,19 +20,26 @@
 namespace curdle {
 
 // ---------------------------------------------------------------------------
-// scan_sel: per (window, lane) running Jacobian prefix over T sequential
-// steps of one no-doubling mixed add each, emitting only the prefixes the
-// host selected.
+// The two streaming scans, one template: per (window, lane) running Jacobian
+// prefix over T sequential steps of one mixed add each.
 //
-// Replaces ops/stream_scan.py::_build_scan_sel of the JAX package, whose
-// grid walked t in order with the running prefix in scratch memory.
+//   scan_sel (FULL = false): the mixed add WITHOUT the doubling branch, a
+//       per-window flag where it met p == q, and only the prefixes the host
+//       selected written. Replaces ops/stream_scan.py::_build_scan_sel of the
+//       JAX package.
+//   scan_full (FULL = true): the complete mixed add, every prefix written;
+//       the redo path of scan_sel, taken when a flag fires or a selection
+//       slot overflows (colliding inputs). Replaces ops/stream_scan.py::
+//       _build_scan.
+// The JAX package's grids walked t in order with the running prefix in
+// scratch memory.
 //
 // Bound by operations: each step is 11 Montgomery products of 300 32-bit
-// multiplies and reads only 49 words. What held the first version back on
-// this card was latency, not the multiplier: one thread per (window, lane)
-// gave W * L = 5,120 threads (160 warps for 528 warp schedulers), each a
-// chain of T * 11 = 2,816 dependent products, with the product out of line
-// and its operands in local memory. So:
+// multiplies and reads only 49 words (scan_full also writes 72). What held
+// the first versions back on this card was latency, not the multiplier: one
+// thread per (window, lane) gave W * L = 5,120 threads (160 warps for 528
+// warp schedulers), each a chain of T * 11 = 2,816 dependent products, with
+// the product out of line and its operands in local memory. So:
 //
 //  * Each lane's T steps are split into K sub-chains of T/K steps, which
 //    share a block (K a power of two dividing T, a kernel argument; K = 1 is
@@ -40,52 +47,67 @@ namespace curdle {
 //      A. each sub-chain sums its records from the identity;
 //      B. an inclusive Hillis-Steele scan over the K sums in shared memory,
 //         with the complete add, gives each sub-chain its offset (the sum of
-//         the sub-chains before it; none for the first);
+//         the sub-chains before it; none for the first). It must be complete
+//         in both scans: on colliding records two sums can be equal;
 //      C. each sub-chain walks its steps again from its offset, so every
-//         prefix is the same point as in the unsplit scan, and emits the
-//         selected prefixes of the K steps in flight at once. The last
-//         sub-chain's end is the lane total; the flag ORs over A and C.
+//         prefix is the same point as in the unsplit scan. scan_sel emits
+//         the selected prefixes of the K steps in flight at once; scan_full
+//         stores each step's prefix from registers to its flat position (a
+//         block's threads of one sub-chain are LB neighbouring lanes, so every
+//         limb row is one coalesced run), with no staging and no barrier.
+//         The last sub-chain's end is the lane total; scan_sel's flag ORs
+//         over A and C.
 //    The chain is 2T/K adds plus log2(K) complete adds long, and there are K
-//    times the threads; the price is twice the mixed adds.
+//    times the threads; the price is twice the mixed adds, so neither scan
+//    can come nearer than about twice its bound.
 //  * The mixed add calls fq_mul and fq_sqr, the product and the square on
 //    PTX carry chains, out of line with their operands in registers (fq.cuh).
 //    No tensor cores: the work is exact 384-bit modular arithmetic with
 //    carries, which wgmma does not do.
-//  * Registers capped for occupancy: __launch_bounds__ asks for two blocks
-//    of SCAN_MAX_THREADS an SM, so at most 128 registers a thread and 16
-//    warps an SM. The kernel spills some 1.2 KB a thread under the cap and
-//    still ran 10 % faster at K = 16 on an H100 than uncapped (255
-//    registers, 8 warps an SM).
-//  chip_smoke.py --product-variants times this kernel uncapped
-//  (CURDLE_SCAN_MIN_BLOCKS = 1), with the arithmetic before the carry
-//  chains, with the product's operands by reference, and inlined; PERF.md
-//  has the readings. A prefetch of the next step's record was not measured
-//  in any committed form.
+//  * scan_sel's registers capped for occupancy: __launch_bounds__ asks for
+//    two blocks of SCAN_MAX_THREADS an SM, so at most 128 registers a
+//    thread and 16 warps an SM. It spills some 1.2 KB a thread under the cap
+//    and still ran 7-8 % faster at K = 16 on an H100 than uncapped (255
+//    registers, 8 warps an SM). scan_full is not capped: capped it spilled
+//    as much and ran 7 % slower (1.826 against 1.701 ms; uncapped 248
+//    registers, no spill; PERF.md).
+//  chip_smoke.py --product-variants times each scan with the other's cap
+//  (CURDLE_SCAN_MIN_BLOCKS = 1, CURDLE_SCAN_FULL_MIN_BLOCKS = 2), with the
+//  arithmetic before the carry chains, with the product's operands by
+//  reference, and inlined; PERF.md has the readings. A prefetch of the next
+//  step's record was not measured in any committed form.
 //
-// What bounds it now: the products, some 430 machine instructions each
+// What bounds them now: the products, some 430 machine instructions each
 // (1,180 before the carry chains), twice over for the split. Replacing
-// phase C's second walk by one complete add per selected prefix halves the
-// mixed adds, but those adds are sparse and diverge across a warp, and
-// measured slower (PERF.md).
+// phase C's second walk by one complete add per selected prefix halves
+// scan_sel's mixed adds, but those adds are sparse and diverge across a
+// warp, and measured slower (PERF.md).
 //
 // Blocks are LB lanes x K sub-chains, sub-chain-major, with LB >= 8 so a
-// record row load of a sub-chain covers whole 32-byte sectors; small blocks
-// spread the W * L * K threads evenly over the SMs.
+// record row load or a prefix row store of a sub-chain covers whole 32-byte
+// sectors; small blocks spread the W * L * K threads evenly over the SMs.
 //
-// records (49, W*T*L): flat position w*T*L + t*L + l.
-// sel (W*T, S) lane ids (outside [0, L) = empty slot)
-//   -> bsel (72, W, T*S) the prefix of lane sel[w*T+t, s] after step t at slot
-//   t*S + s, zero for an empty slot; flags (W,) OR-ed with 1 where the
-//   no-doubling add met p == q; totals (72, W, L) the lane's last prefix.
-// The step's prefixes are staged through shared memory and written
-// slot-major, so the stores coalesce and a lane named by several slots is
-// written to each.
+// records (49, W*T*L): flat position w*T*L + t*L + l; totals (72, W, L) the
+// lane's last prefix.
+// scan_sel: sel (W*T, S) lane ids (outside [0, L) = empty slot)
+//   -> out (72, W, T*S) the prefix of lane sel[w*T+t, s] after step t at
+//   slot t*S + s, zero for an empty slot; flags (W,) OR-ed with 1 where the
+//   no-doubling add met p == q. The step's prefixes are staged through
+//   shared memory and written slot-major, so the stores coalesce and a lane
+//   named by several slots is written to each.
+// scan_full: sel and flags unused -> out (72, W, T*L) every prefix, at the
+//   record's flat position.
 // ---------------------------------------------------------------------------
 
 constexpr int JAC_WORDS = 3 * FQ_WORDS;
 constexpr int SCAN_MAX_THREADS = 256;
+// blocks of SCAN_MAX_THREADS an SM that scan_sel and scan_full ask for; the
+// other value of each is a measured variant
 #ifndef CURDLE_SCAN_MIN_BLOCKS
-#define CURDLE_SCAN_MIN_BLOCKS 2  // blocks of SCAN_MAX_THREADS an SM; 1 is a measured variant
+#define CURDLE_SCAN_MIN_BLOCKS 2
+#endif
+#ifndef CURDLE_SCAN_FULL_MIN_BLOCKS
+#define CURDLE_SCAN_FULL_MIN_BLOCKS 1
 #endif
 
 struct Rec {
@@ -121,10 +143,18 @@ __device__ __forceinline__ Jac jac_from_stage(const uint32_t* stage, int bt, int
   return p;
 }
 
-__global__ void __launch_bounds__(SCAN_MAX_THREADS, CURDLE_SCAN_MIN_BLOCKS)
-scan_sel_kernel(const uint32_t* __restrict__ rec, const int32_t* __restrict__ sel,
-                uint32_t* __restrict__ out, uint32_t* __restrict__ tot, int32_t* __restrict__ flags,
-                int W, int T, int L, int S, int K, int LB) {
+// A Jacobian triple to the 72 limb rows at `o`, rows `stride` apart.
+__device__ __forceinline__ void jac_store_rows(uint32_t* __restrict__ o, size_t stride, const Jac& p) {
+  fq_store(o, stride, p.x);
+  fq_store(o + 24 * stride, stride, p.y);
+  fq_store(o + 48 * stride, stride, p.z);
+}
+
+template <bool FULL>
+__global__ void __launch_bounds__(SCAN_MAX_THREADS, FULL ? CURDLE_SCAN_FULL_MIN_BLOCKS : CURDLE_SCAN_MIN_BLOCKS)
+scan_kernel(const uint32_t* __restrict__ rec, const int32_t* __restrict__ sel,
+            uint32_t* __restrict__ out, uint32_t* __restrict__ tot, int32_t* __restrict__ flags,
+            int W, int T, int L, int S, int K, int LB) {
   extern __shared__ uint32_t stage[];  // JAC_WORDS x (K * LB), word-major
   const int bt = K * LB;
   const int tid = threadIdx.x;
@@ -151,10 +181,12 @@ scan_sel_kernel(const uint32_t* __restrict__ rec, const int32_t* __restrict__ se
       if (active) {
         const Rec q = rec_load(base + (size_t)(t0 + u) * L, n_rec);
         Jac res;
-        flag |= jac_madd<false>(res, acc, q.x, q.y, q.inf);
+        flag |= jac_madd<FULL>(res, acc, q.x, q.y, q.inf);
         acc = res;
+        if (FULL && phase == 1)
+          jac_store_rows(out + (size_t)w * T * L + (size_t)(t0 + u) * L + lane, n_rec, acc);
       }
-      if (phase == 1) {
+      if (!FULL && phase == 1) {
         jac_to_stage(stage, bt, tid, acc);
         __syncthreads();
         for (int f = tid; f < K * S; f += bt) {
@@ -200,58 +232,26 @@ scan_sel_kernel(const uint32_t* __restrict__ rec, const int32_t* __restrict__ se
   }
 
   if (active) {
-    if (sub == K - 1) {
-      const size_t n_tot = (size_t)W * L;
-      uint32_t* o = tot + (size_t)w * L + lane;
-      fq_store(o, n_tot, acc.x);
-      fq_store(o + 24 * n_tot, n_tot, acc.y);
-      fq_store(o + 48 * n_tot, n_tot, acc.z);
-    }
-    if (flag) atomicOr(&flags[w], 1);
+    if (sub == K - 1) jac_store_rows(tot + (size_t)w * L + lane, (size_t)W * L, acc);
+    if (!FULL && flag) atomicOr(&flags[w], 1);
   }
 }
 
-// ---------------------------------------------------------------------------
-// scan_full: the same scan with the complete mixed add, every prefix
-// written; the redo path of scan_sel. Replaces ops/stream_scan.py::
-// _build_scan of the JAX package. Still the first design: one thread per
-// (window, lane) walks all T steps, one-warp blocks, the out-of-line
-// product.
-//
-// records (49, W*T*L) -> prefix (72, W, T*L) every prefix, totals (72, W, L).
-// ---------------------------------------------------------------------------
-
-constexpr int SCAN_FULL_THREADS = 32;
-
-__global__ void __launch_bounds__(SCAN_FULL_THREADS)
-scan_full_kernel(const uint32_t* __restrict__ rec, uint32_t* __restrict__ out,
-                 uint32_t* __restrict__ tot, int W, int T, int L) {
-  const int w = blockIdx.y;
-  const int lane = blockIdx.x * SCAN_FULL_THREADS + threadIdx.x;
-  if (lane >= L) return;
-  const size_t n_rec = (size_t)W * T * L;
-
-  Jac acc = jac_zero();  // z == 0: the first add yields lift(q)
-#pragma unroll 1
-  for (int t = 0; t < T; ++t) {
-    const size_t pos = (size_t)w * T * L + (size_t)t * L + lane;
-    const uint32_t* r = rec + pos;
-    const Fq qx = fq_load(r, n_rec);
-    const Fq qy = fq_load(r + 24 * n_rec, n_rec);
-    const bool qinf = r[48 * n_rec] != 0u;
-    Jac res;
-    jac_madd<true>(res, acc, qx, qy, qinf);
-    acc = res;
-    uint32_t* o = out + pos;
-    fq_store(o, n_rec, acc.x);
-    fq_store(o + 24 * n_rec, n_rec, acc.y);
-    fq_store(o + 48 * n_rec, n_rec, acc.z);
-  }
-  const size_t n_tot = (size_t)W * L;
-  uint32_t* o = tot + (size_t)w * L + lane;
-  fq_store(o, n_tot, acc.x);
-  fq_store(o + 24 * n_tot, n_tot, acc.y);
-  fq_store(o + 48 * n_tot, n_tot, acc.z);
+// The launch both scans share: K sub-chains a lane, a power of two dividing
+// T, at most SCAN_MAX_THREADS / 8; LB lanes a block, 32, 32, 16, 8, 8, ...
+// for K = 1, 2, 4, 8, 16, ...
+template <bool FULL>
+int scan_launch(const void* rec, const void* sel, void* out, void* tot, void* flags, int W, int T,
+                int L, int S, int K, void* stream) {
+  if (K < 1 || (K & (K - 1)) || T % K || 8 * K > SCAN_MAX_THREADS) return (int)cudaErrorInvalidValue;
+  const int LB = K >= 8 ? 8 : 64 / K > 32 ? 32 : 64 / K;
+  const int bt = K * LB;
+  dim3 grid((L + LB - 1) / LB, W);
+  const size_t smem = (size_t)JAC_WORDS * bt * sizeof(uint32_t);
+  scan_kernel<FULL><<<grid, bt, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)rec, (const int32_t*)sel, (uint32_t*)out, (uint32_t*)tot, (int32_t*)flags,
+      W, T, L, S, K, LB);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -421,24 +421,14 @@ extern "C" {
 // dividing T, at most SCAN_MAX_THREADS / 8.
 int curdle_scan_sel(const void* rec, const void* sel, void* bsel, void* tot, void* flags, int W,
                     int T, int L, int S, int K, void* stream) {
-  if (K < 1 || (K & (K - 1)) || T % K || 8 * K > SCAN_MAX_THREADS) return (int)cudaErrorInvalidValue;
-  const int LB = K >= 8 ? 8 : 64 / K > 32 ? 32 : 64 / K;  // lanes a block: 32, 32, 16, 8, 8, ...
-  const int bt = K * LB;
-  dim3 grid((L + LB - 1) / LB, W);
-  const size_t smem = (size_t)JAC_WORDS * bt * sizeof(uint32_t);
-  scan_sel_kernel<<<grid, bt, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)rec, (const int32_t*)sel, (uint32_t*)bsel, (uint32_t*)tot, (int32_t*)flags,
-      W, T, L, S, K, LB);
-  return (int)cudaGetLastError();
+  return scan_launch<false>(rec, sel, bsel, tot, flags, W, T, L, S, K, stream);
 }
 
-// records (49, W*T*L) -> prefix (72, W, T*L), totals (72, W, L).
-int curdle_scan_full(const void* rec, void* prefix, void* tot, int W, int T, int L,
+// records (49, W*T*L) -> prefix (72, W, T*L), totals (72, W, L). K as for
+// curdle_scan_sel.
+int curdle_scan_full(const void* rec, void* prefix, void* tot, int W, int T, int L, int K,
                      void* stream) {
-  dim3 grid((L + SCAN_FULL_THREADS - 1) / SCAN_FULL_THREADS, W);
-  scan_full_kernel<<<grid, SCAN_FULL_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)rec, (uint32_t*)prefix, (uint32_t*)tot, W, T, L);
-  return (int)cudaGetLastError();
+  return scan_launch<true>(rec, nullptr, prefix, tot, nullptr, W, T, L, 0, K, stream);
 }
 
 // records != 0: table (Wt, N, RP) record-major, RP a multiple of 4 and >= R;

@@ -9,7 +9,7 @@
 // cudaGetLastError().
 //
 // Four kernels, each computing k_i * P_i for every lane i, each lane served
-// by a group of G threads (G = 1, 2 or 4; ladder_w1 one thread):
+// by a group of G threads (G = 1, 2 or 4):
 //
 //   ladder_glv_w3, ladder_glv_w4   (one template over the window width)
 //       replace ops/pallas_g1.py::_build_glv_ladder_kernel and
@@ -27,11 +27,11 @@
 //
 // What the design does about the bound: the callers offer 124 to 16,384
 // lanes, so blocks are one warp wide to spread the chains over all SMs.
-// Where the lanes' warps leave the card's 528 schedulers idle, the GLV
-// ladders and ladder_w3 spread each lane over a group of G threads that run
-// a formula's independent products side by side (g1.cuh), which shortens
-// the chain; where they do not, G = 1 and the chain runs in one thread.
-// The caller picks G by width (ops/cuda_g1.ladder_glv_group, ladder_group).
+// Where the lanes' warps leave the card's 528 schedulers idle, each ladder
+// spreads a lane over a group of G threads that run a formula's independent
+// products side by side (g1.cuh), which shortens the chain; where they do
+// not, G = 1 and the chain runs in one thread. The caller picks G by width
+// (ops/cuda_g1.ladder_glv_group, ladder_group, ladder_w1_group).
 // At G = 1 the point formulas are called through `__noinline__` shims (an
 // iteration holds up to six point operations, and one shared body each
 // keeps the build at seconds; see fq.cuh on fq_mul); at G > 1 the group
@@ -97,14 +97,6 @@ struct Scalar {
   }
 };
 
-__device__ __forceinline__ void jac_store(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
-                                          uint32_t* __restrict__ oz, size_t stride,
-                                          const Jac& a) {
-  fq_store(ox, stride, a.x);
-  fq_store(oy, stride, a.y);
-  fq_store(oz, stride, a.z);
-}
-
 // How a ladder loop calls its point formulas: G = 1 through the shims above,
 // G > 1 with the group formulas inlined (see the head of this file).
 template <int G>
@@ -125,13 +117,15 @@ __device__ __forceinline__ void grp_add(Jac& acc, const Jac& b, int q) {
   }
 }
 
-template <int G>
+// COMPLETE: with the doubling branch, which a group runs on the whole warp
+// when any group of it needs it (jac_madd_g).
+template <int G, bool COMPLETE = false>
 __device__ __forceinline__ void grp_madd(Jac& out, const Jac& p, const Fq& qx, const Fq& qy, bool qinf,
                                          int q) {
   if constexpr (G == 1) {
-    lad_madd<false>(out, p, qx, qy, qinf);
+    lad_madd<COMPLETE>(out, p, qx, qy, qinf);
   } else {
-    jac_madd_g<G, false>(out, p, qx, qy, qinf, q);
+    jac_madd_g<G, COMPLETE>(out, p, qx, qy, qinf, q);
   }
 }
 
@@ -288,18 +282,36 @@ ladder_w3_kernel(const uint32_t* __restrict__ table, const uint32_t* __restrict_
 
 // ---------------------------------------------------------------------------
 // ladder_w1: the bitwise ladder, 255 times a doubling and, where bit
-// 254 - i of the scalar is set, a complete mixed add of the base.
+// 254 - i of the scalar is set, a complete mixed add of the base; G threads
+// a lane (1, 2 or 4, chosen by the caller from m: ops/cuda_g1.ladder_w1_group).
 //
-// px, py (24, m), inf (m,), sc (16, m) -> ox, oy, oz (24, m).
+// px, py (24, m), inf (m,), sc (16, m) -> ox, oy, oz (24, m). The
+// accumulator starts at the all-zero triple (infinity).
+//
+// A step is one dependent chain, 7 products for the doubling and 11 for the
+// add, and the callers launch it at 124 to 8,192 lanes: at one thread a
+// lane under half a warp a scheduler, so the time is one chain's latency.
+// With the group formulas of g1.cuh a step is 3 + 5 = 8 product rounds at
+// G = 4 and 11 at G = 2, on G times the warps, as in ladder_w3. The bit is
+// the lane's, so a group agrees on it; a warp runs the add when any of its
+// groups has the bit set (at G > 1) and keeps it only in those groups. The
+// add is complete: its doubling branch (the prefix equals the base, as for
+// k = r + 2 at the last bit) runs on the whole warp when any group meets it
+// (jac_madd_g). The G threads of a lane read the point and the scalar as one
+// broadcast load, and each stores its share of the result; a thread past m
+// computes lane m - 1 again and stores nothing.
 // ---------------------------------------------------------------------------
 
+template <int G>
 __global__ void __launch_bounds__(LADDER_THREADS)
 ladder_w1_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
                  const int32_t* __restrict__ inf, const uint32_t* __restrict__ sc,
                  uint32_t* __restrict__ ox, uint32_t* __restrict__ oy, uint32_t* __restrict__ oz,
                  int m) {
-  const int i = blockIdx.x * LADDER_THREADS + threadIdx.x;
-  if (i >= m) return;
+  const int t = blockIdx.x * LADDER_THREADS + threadIdx.x;
+  const int lane = t / G, q = t % G;
+  if (G == 1 && lane >= m) return;  // no shuffles at G = 1
+  const int i = lane < m ? lane : m - 1;
   const size_t stride = (size_t)m;
   const Fq bx = fq_load(px + i, stride);
   const Fq by = fq_load(py + i, stride);
@@ -310,10 +322,15 @@ ladder_w1_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ p
   Jac acc = jac_zero();
 #pragma unroll 1
   for (int it = 0; it < 255; ++it) {
-    lad_dbl(acc);
-    if (k.digit(254 - it, 1) != 0u) lad_madd<true>(acc, acc, bx, by, binf);
+    grp_dbl<G>(acc, q);
+    const bool bit = k.digit(254 - it, 1) != 0u;
+    if (warp_takes<G>(bit)) {
+      Jac sum;
+      grp_madd<G, true>(sum, acc, bx, by, binf, q);
+      if (bit) acc = sum;
+    }
   }
-  jac_store(ox + i, oy + i, oz + i, stride, acc);
+  if (lane < m) jac_store_share<G>(ox + i, oy + i, oz + i, stride, acc, q);
 }
 
 }  // namespace curdle
@@ -378,13 +395,27 @@ int curdle_ladder_w3(const void* table, const void* sc, void* ox, void* oy, void
   return (int)cudaGetLastError();
 }
 
-// px, py (24, m), inf (m,), sc (16, m) -> ox, oy, oz (24, m).
+// px, py (24, m), inf (m,), sc (16, m) -> ox, oy, oz (24, m); group:
+// threads a lane, 1, 2 or 4; blocks of LADDER_THREADS, at least m * group
+// threads in all.
 int curdle_ladder_w1(const void* px, const void* py, const void* inf, const void* sc, void* ox,
-                     void* oy, void* oz, int m, void* stream) {
-  const int blocks = (m + LADDER_THREADS - 1) / LADDER_THREADS;
-  ladder_w1_kernel<<<blocks, LADDER_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)px, (const uint32_t*)py, (const int32_t*)inf, (const uint32_t*)sc,
-      (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, m);
+                     void* oy, void* oz, int m, int group, int blocks, void* stream) {
+  if (m < 1 || (long long)blocks * LADDER_THREADS < (long long)m * group)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#define CURDLE_W1_ARGS                                                                      \
+  (const uint32_t*)px, (const uint32_t*)py, (const int32_t*)inf, (const uint32_t*)sc,       \
+      (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, m
+  if (group == 1) {
+    ladder_w1_kernel<1><<<blocks, LADDER_THREADS, 0, st>>>(CURDLE_W1_ARGS);
+  } else if (group == 2) {
+    ladder_w1_kernel<2><<<blocks, LADDER_THREADS, 0, st>>>(CURDLE_W1_ARGS);
+  } else if (group == 4) {
+    ladder_w1_kernel<4><<<blocks, LADDER_THREADS, 0, st>>>(CURDLE_W1_ARGS);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+#undef CURDLE_W1_ARGS
   return (int)cudaGetLastError();
 }
 

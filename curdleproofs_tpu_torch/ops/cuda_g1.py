@@ -16,12 +16,12 @@ imported.
 `point_op` and the ladders are bound by operations, not bytes: a complete
 Jacobian add is 16 Montgomery products (300 32-bit multiplies each) on 6
 field elements read and 3 written, and a ladder chains 2,300 to 4,600 such
-products per lane between reading a point and writing one. In `point_op`,
-`ladder_w3` and the GLV ladders a group of `group` threads (1, 2 or 4,
-`GROUPS`) serves a lane and runs each formula's independent products side by
-side (csrc/g1.cuh); `point_group(m, body)`, `ladder_group(m)` and
-`ladder_glv_group(m, w)` pick it from the width, and the wrappers compute the
-grid (`launch_blocks`). `ladder_w1` runs one thread a lane.
+products per lane between reading a point and writing one. In `point_op` and
+in every ladder a group of `group` threads (1, 2 or 4, `GROUPS`) serves a
+lane and runs each formula's independent products side by side
+(csrc/g1.cuh); `point_group(m, body)`, `ladder_group(m)`,
+`ladder_w1_group(m)` and `ladder_glv_group(m, w)` pick it from the width, and
+the wrappers compute the grid (`launch_blocks`).
 
 Every wrapper launches on `torch.cuda.current_stream()`, allocates its outputs
 with `torch.empty`, raises on a non-zero return, and adds one to its entry in
@@ -67,14 +67,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRY_POINTS = {
     "kernels.cu": {
         "curdle_scan_sel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "curdle_scan_full": [_P, _P, _P, _I, _I, _I, _P],
+        "curdle_scan_full": [_P, _P, _P, _I, _I, _I, _I, _P],
         "curdle_gather_u32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "curdle_point_op": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "ladders.cu": {
         "curdle_ladder_glv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         "curdle_ladder_w3": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-        "curdle_ladder_w1": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+        "curdle_ladder_w1": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "gather.cu": {
         "curdle_rowwise_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -100,8 +100,8 @@ launch_counts: Dict[str, int] = {k: 0 for k in KERNEL_NAMES}
 # over 15-entry tables. The JAX package's knob, under its name.
 GLV_W = int(os.environ.get("CURDLEPROOFS_GLV_W", "3"))
 
-# Threads a lane that the point kernel (csrc/kernels.cu), ladder_w3 and the
-# GLV ladders (csrc/ladders.cu) are built for, and their block widths there.
+# Threads a lane that the point kernel (csrc/kernels.cu) and the ladders
+# (csrc/ladders.cu) are built for, and their block widths there.
 GROUPS = (1, 2, 4)
 POINT_THREADS = 128
 LADDER_THREADS = 32
@@ -235,6 +235,12 @@ POINT_GROUP_LIMITS = {"jadd": (8192, 16384), "jdbl": (2560, 8192), "jmadd": (256
 # ladder_w3: (widest m for G = 4, widest m for G = 2); G = 1 beyond (G = 2
 # past 8,192 lanes is not measured).
 LADDER_GROUP_LIMITS = (8192, 8192)
+# ladder_w1, the same: its add is one mixed add of the base, so a step holds
+# fewer products than ladder_w3's and G = 2 overtakes G = 4 sooner. At 6,144
+# and 8,192 lanes G = 2 ran 3.15 / 3.14 ms against G = 4's 3.22 / 3.24, at
+# 16,383 4.24 against G = 1's 5.02 and G = 4's 6.47 (chip_smoke.py
+# `group_sweep` on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md).
+LADDER_W1_GROUP_LIMITS = (4096, 16384)
 # the GLV ladders: window width -> (widest m for G = 4, widest m for G = 2).
 GLV_GROUP_LIMITS = {3: (8192, 16384), 4: (8192, 16384)}
 
@@ -248,6 +254,12 @@ def point_group(m: int, body: str = "jadd") -> int:
 def ladder_group(m: int) -> int:
     """Threads a lane for `ladder_w3` at m lanes."""
     four, two = LADDER_GROUP_LIMITS
+    return 4 if m <= four else 2 if m <= two else 1
+
+
+def ladder_w1_group(m: int) -> int:
+    """Threads a lane for `ladder_w1` at m lanes."""
+    four, two = LADDER_W1_GROUP_LIMITS
     return 4 if m <= four else 2 if m <= two else 1
 
 
@@ -469,13 +481,16 @@ def scalar_mul(points, scalars, group: Optional[int] = None):
     return JPoints(*(o.reshape(shape) for o in outs))
 
 
-def scalar_mul_w1(points, scalars):
+def scalar_mul_w1(points, scalars, group: Optional[int] = None):
     """Per lane k*P with the bitwise ladder (255 doublings, a complete mixed
-    add per set bit); the cross-check of the windowed ladders. Returns
-    Jacobian (24, *B)."""
+    add per set bit); the cross-check of the windowed ladders. group:
+    threads a lane (default `ladder_w1_group(m)`). Returns Jacobian (24, *B)."""
     from curdleproofs_tpu_torch.ops.g1 import JPoints
 
+    if group is not None:
+        check_group("scalar_mul_w1", group)
     px, py, shape, m = _ladder_base("scalar_mul_w1", points)
+    group = ladder_w1_group(m) if group is None else group
     sc = scalars.reshape(16, -1).contiguous()
     check_tensor("scalar_mul_w1 scalars", sc, (16, m))
     inf = _lane_row("scalar_mul_w1 inf", points.inf, m)
@@ -484,7 +499,7 @@ def scalar_mul_w1(points, scalars):
         with torch.cuda.device(px.device):
             rc = lib().curdle_ladder_w1(
                 px.data_ptr(), py.data_ptr(), inf.data_ptr(), sc.data_ptr(),
-                *(o.data_ptr() for o in outs), m, stream_ptr(),
+                *(o.data_ptr() for o in outs), m, group, launch_blocks(m, group, LADDER_THREADS), stream_ptr(),
             )
         check_launch("ladder_w1", rc)
         launch_counts["ladder_w1"] += 1

@@ -213,6 +213,34 @@ def test_scan_sel_split(points, card, split):
         )
 
 
+@pytest.mark.parametrize("split", [1, 2, 4, 16])
+def test_scan_full_split(points, card, split):
+    """The complete scan at `split` sub-chains a lane against its plain
+    version at the same split, bit for bit: a forced p == q in window 0, a
+    lane of one point at every step in window 1 (the complete add doubles in
+    phases A, B and C), an infinity record; every prefix and total the same
+    point as the unsplit scan's."""
+    ap, _ = points
+    W, T, L = 2, 16, 24
+    rec1 = torch.cat([ap.x, ap.y, ap.inf.unsqueeze(0).to(torch.int32)], dim=0)
+    rec = rec1.repeat(1, 3)[:, : W * T * L].clone()
+    rec[:, 1 * L + 2] = rec[:, 0 * L + 2]  # window 0, lane 2: p == q at step 1
+    rec = rec.reshape(49, W, T, L)
+    rec[:, 1, :, 7] = rec[:, 1, :1, 7]  # window 1, lane 7: all equal
+    rec[48, 1, 5, 3] = 1  # an infinity record
+    rec = rec.reshape(49, W * T * L).contiguous()
+    before = cuda_g1.launch_counts["scan_full"]
+    got = ostream.scan_records(rec, W, T, L, split=split)
+    assert cuda_g1.launch_counts["scan_full"] == before + 1
+    assert _equal(got, ostream.scan_records_ref(rec, W, T, L, split=split))
+    one = ostream.scan_records(rec, W, T, L, split=1)
+    for a, b in zip(got, one):
+        a, b = a.reshape(72, -1), b.reshape(72, -1)
+        assert og.jpoints_to_host(og.JPoints(a[:24], a[24:48], a[48:])) == og.jpoints_to_host(
+            og.JPoints(b[:24], b[24:48], b[48:])
+        )
+
+
 @pytest.fixture(scope="module")
 def ladder_lanes(card):
     """64 lanes: the edge scalars, an identity base, two equal bases, the
@@ -287,3 +315,40 @@ def test_ladder_w3_groups(ladder_lanes, card, group, lanes):
     assert cuda_g1.launch_counts["ladder_w3"] == before + 1
     assert _equal(got, _W3_PLAIN[lanes])
     assert og.jpoints_to_host(got) == want[:lanes]
+
+
+@pytest.fixture(scope="module")
+def w1_lanes(card):
+    """4,096 lanes for ladder_w1: the edge scalars and r + 2 (whose last
+    step adds P to P: the complete add's doubling), an identity base, two
+    equal bases, then 64 random bases over and over with random scalars; the
+    plain ladder's outputs once for all of them (a lane's result depends on
+    its own inputs only, so the first m lanes serve every width m) and the
+    host's k * P for the first 64."""
+    rng = random.Random(13)
+    n = 4096
+    pool = [G1() * Fr(rng.randrange(1, FR_MOD)) for _ in range(64)]
+    pts = [pool[i % 64] for i in range(n)]
+    edges = list(oglv.EDGE_SCALARS) + [FR_MOD + 2]
+    ks = edges + [rng.randrange(FR_MOD) for _ in range(n - len(edges))]
+    pts[len(edges)] = G1.identity()
+    pts[len(edges) + 2] = pts[len(edges) + 1]
+    ap = og.pack_points(pts, card)
+    sc = from_reference(np.asarray(ints_to_limbs(ks, 16), dtype=np.uint32), card)
+    plain = og._scalar_mul_plain(ap, sc, acc0=og._jzero(ap.x))
+    return ap, sc, plain, [p * Fr(k) for p, k in zip(pts[:64], ks[:64])]
+
+
+@pytest.mark.parametrize("m", [1, 31, 124, 4096])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_ladder_w1_groups(w1_lanes, card, group, m):
+    """ladder_w1 at every thread group and ragged widths: bit-equal to the
+    plain bitwise ladder on all three coordinates, the host's k * P on the
+    first 64 lanes, one launch."""
+    ap, sc, plain, want = w1_lanes
+    apm = og.APoints(ap.x[:, :m].contiguous(), ap.y[:, :m].contiguous(), ap.inf[:m].contiguous())
+    before = cuda_g1.launch_counts["ladder_w1"]
+    got = cuda_g1.scalar_mul_w1(apm, sc[:, :m].contiguous(), group)
+    assert cuda_g1.launch_counts["ladder_w1"] == before + 1
+    assert _equal(got, [t[:, :m] for t in plain])
+    assert og.jpoints_to_host(og.JPoints(*(t[:, :64] for t in got))) == want[:m]

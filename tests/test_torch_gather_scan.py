@@ -71,13 +71,31 @@ def records():
     return rec, jnp.asarray(to_reference(rec))
 
 
-def test_scan_records_matches_jax(records):
+def test_scan_records_matches_jax(records, monkeypatch):
+    """The unsplit scan (SCAN_SPLIT = 1) is the JAX package's, limb for limb."""
+    monkeypatch.setattr(tstream, "SCAN_SPLIT", 1)
     rec, jrec = records
     pref, tot = tstream.scan_records(rec, W, T, L)
     jpref, jtot = jax.jit(jstream._scan_records_xla, static_argnums=(1, 2, 3))(jrec, W, T, L)
     assert tuple(pref.shape) == (72, W, T * L) and tuple(tot.shape) == (72, W, L)
     assert _same(pref, jpref)
     assert _same(tot, jtot)
+
+
+def _points(t):
+    t = t.reshape(72, -1)
+    return tog.jpoints_to_host(tog.JPoints(t[:24], t[24:48], t[48:]))
+
+
+def test_scan_records_default_split_equals_jax_as_points(records):
+    """At the default split (K sub-chains a lane) every prefix and total is
+    the JAX package's point, as another Jacobian triple."""
+    rec, jrec = records
+    assert tstream.split_steps(T) > 1
+    pref, tot = tstream.scan_records(rec, W, T, L)
+    jpref, jtot = jax.jit(jstream._scan_records_xla, static_argnums=(1, 2, 3))(jrec, W, T, L)
+    assert _points(pref) == _points(from_reference(np.asarray(jpref), "cpu"))
+    assert _points(tot) == _points(from_reference(np.asarray(jtot), "cpu"))
 
 
 def test_scan_records_sel_matches_jax_with_forced_collision(records):
@@ -102,7 +120,7 @@ def test_scan_sel_out_of_range_lane_is_empty(records):
     sel[:, 0] = L  # past the last lane: an empty slot, as in the kernel
     sel[:, 1] = 4
     bsel, _, _ = tstream.scan_records_sel(rec, from_reference(sel, "cpu"), W, T, L, S, split=1)
-    pref, _ = tstream.scan_records(rec, W, T, L)
+    pref, _ = tstream.scan_records(rec, W, T, L, split=1)
     got = to_reference(bsel).reshape(72, W, T, S)
     assert not got[..., 0].any()
     want = to_reference(pref).reshape(72, W, T, L)[..., 4]

@@ -183,7 +183,10 @@ def test_glv_stream_packed_equals_jax(body_inputs):
     assert _same(body_inputs["tpacked"], body_inputs["jpacked"])
 
 
-def test_stream_window_partials_equals_jax(body_inputs):
+def test_stream_window_partials_equals_jax(body_inputs, monkeypatch):
+    """The full-prefix body on the unsplit scan (SCAN_SPLIT = 1): total and
+    bsums limb for limb the JAX package's."""
+    monkeypatch.setattr(tstream, "SCAN_SPLIT", 1)
     b = body_inputs
     total, bsums = tmsm._stream_window_partials(
         b["tpacked"],
@@ -199,6 +202,26 @@ def test_stream_window_partials_equals_jax(body_inputs):
     )
     for t, j in zip(tuple(total) + tuple(bsums), tuple(jtotal) + tuple(jbsums)):
         assert _same(t, j)
+
+
+def test_stream_window_partials_default_split_equals_jax_as_points(body_inputs):
+    """The full-prefix body at the default split: total and bsums are other
+    Jacobian triples of the JAX package's points."""
+    b = body_inputs
+    assert tstream.split_steps(b["T"]) > 1
+    total, bsums = tmsm._stream_window_partials(
+        b["tpacked"], from_reference(b["order_cm"], "cpu"), from_reference(b["bidx"], "cpu"),
+        from_reference(b["lidx"], "cpu"), b["T"], b["L"],
+    )
+    jtotal, jbsums = jmsm._stream_window_partials(
+        b["jpacked"], jnp.asarray(b["order_cm"]), jnp.asarray(b["bidx"]), jnp.asarray(b["lidx"]),
+        b["T"], b["L"],
+    )
+    for t, j in ((total, jtotal), (bsums, jbsums)):
+        want = tog.JPoints(*(from_reference(np.asarray(a), "cpu") for a in j))
+        assert tog.jpoints_to_host(tog.JPoints(*(a.reshape(24, -1) for a in t))) == tog.jpoints_to_host(
+            tog.JPoints(*(a.reshape(24, -1) for a in want))
+        )
 
 
 def test_sel_body_equals_jax_routed_sel(body_inputs, monkeypatch):

@@ -1,12 +1,14 @@
-"""Thread groups of the point kernel, of ladder_w3 and of the GLV ladders
-(ops.cuda_g1): the launch geometry covers every lane exactly once, the
-picks shrink the group as the width grows, the wrappers refuse a group that
-was not built, the GLV ladder's C entry point is bound with its group and
-grid, and the plain formulas the kernels are held against equal the
-JAX package's, limb for limb, at a ragged width with one lane in each
-branch. CPU only (the kernels themselves: tests/test_torch_cuda_kernels.py
-on a card)."""
+"""Thread groups of the point kernel and of the ladders (ops.cuda_g1): the
+launch geometry covers every lane exactly once, the picks shrink the group
+as the width grows, the wrappers refuse a group that was not built, the
+ladders' C entry points are bound with their group and grid (ladder_w1's
+wrapper driven against a stand-in for the library), and the plain formulas
+the kernels are held against equal the JAX package's, limb for limb, at a
+ragged width with one lane in each branch. CPU only (the kernels
+themselves: tests/test_torch_cuda_kernels.py on a card)."""
+import contextlib
 import random
+import types
 
 import jax
 import numpy as np
@@ -27,10 +29,12 @@ POINT_BODIES = ("jadd", "jdbl", "jmadd")
 # block width -> the groups its wrapper picks at m lanes
 PICKS = {
     cuda_g1.POINT_THREADS: lambda m: {cuda_g1.point_group(m, b) for b in POINT_BODIES},
-    cuda_g1.LADDER_THREADS: lambda m: {cuda_g1.ladder_group(m)} | {cuda_g1.ladder_glv_group(m, w) for w in (3, 4)},
+    cuda_g1.LADDER_THREADS: lambda m: {cuda_g1.ladder_group(m), cuda_g1.ladder_w1_group(m)}
+    | {cuda_g1.ladder_glv_group(m, w) for w in (3, 4)},
 }
 LADDER_PICKS = {
     "ladder": cuda_g1.ladder_group,
+    "ladder_w1": cuda_g1.ladder_w1_group,
     "glv3": lambda m: cuda_g1.ladder_glv_group(m, 3),
     "glv4": lambda m: cuda_g1.ladder_glv_group(m, 4),
 }
@@ -83,6 +87,8 @@ def test_wrappers_reject_a_group_not_built(group):
     for w in (3, 4):
         with pytest.raises(ValueError, match="group"):
             cuda_g1.scalar_mul_glv(pts, half, torch.zeros(5, dtype=torch.int32), half, w=w, group=group)
+    with pytest.raises(ValueError, match="group"):
+        cuda_g1.scalar_mul_w1(pts, torch.zeros((16, 5), dtype=torch.int32), group)
 
 
 def test_glv_entry_point_takes_the_group_and_the_grid():
@@ -96,6 +102,64 @@ def test_glv_entry_point_takes_the_group_and_the_grid():
     args = [a.strip() for a in decl[decl.index("(") + 1 : decl.rindex(")")].split(",")]
     assert [("int " in a and "*" not in a) for a in args] == [t is I for t in cuda_g1.ENTRY_POINTS["ladders.cu"]["curdle_ladder_glv"]]
     assert args[-4:] == ["int m", "int group", "int blocks", "void* stream"]
+
+
+_P, _I = cuda_g1.ctypes.c_void_p, cuda_g1.ctypes.c_int
+# unit, entry point -> its argument types and the names of its last arguments
+ENTRY_DECLS = {
+    ("ladders.cu", "curdle_ladder_w3"): ([_P] * 5 + [_I, _I, _I, _P], ["int m", "int group", "int blocks", "void* stream"]),
+    ("ladders.cu", "curdle_ladder_w1"): ([_P] * 7 + [_I, _I, _I, _P], ["int m", "int group", "int blocks", "void* stream"]),
+    ("kernels.cu", "curdle_scan_full"): ([_P] * 3 + [_I] * 4 + [_P], ["int L", "int K", "void* stream"]),
+}
+
+
+@pytest.mark.parametrize("unit,name", sorted(ENTRY_DECLS))
+def test_entry_point_binding_matches_its_declaration(unit, name):
+    """The ctypes argument types of an entry point are its C declaration's
+    (csrc/*.cu): ints where the C side has int, pointers (64 bits)
+    elsewhere, one for one; ladder_w3 and ladder_w1 take the group and the
+    grid, the full scan its sub-chains."""
+    types_, tail = ENTRY_DECLS[(unit, name)]
+    assert cuda_g1.ENTRY_POINTS[unit][name] == types_
+    src = (cuda_g1.CSRC_DIR / unit).read_text()
+    head = f"int {name}("
+    decl = src[src.index(head) : src.index("{", src.index(head))]
+    args = [a.strip() for a in decl[decl.index("(") + 1 : decl.rindex(")")].split(",")]
+    assert [("int " in a and "*" not in a) for a in args] == [t is _I for t in types_]
+    assert args[-len(tail):] == tail
+
+
+@pytest.mark.parametrize("m", [1, 31, 124, 4096, 8192, 8193, 16383])
+def test_ladder_w1_wrapper_launches_its_pick(monkeypatch, m):
+    """`scalar_mul_w1` against a stand-in for the built library: it passes
+    the entry point its ctypes arity, m, the group `ladder_w1_group` picks and
+    a grid of whole blocks with at least m * G threads and no spare block,
+    and counts one launch."""
+    seen = {}
+
+    def fake(*args):
+        assert len(args) == len(cuda_g1.ENTRY_POINTS["ladders.cu"]["curdle_ladder_w1"])
+        seen["m"], seen["group"], seen["blocks"] = args[7:10]
+        return 0
+
+    def check_any_device(name, t, shape, dtype=torch.int32):
+        assert t.dtype == dtype and tuple(t.shape) == tuple(shape) and t.is_contiguous(), name
+
+    # the stand-in's launch is counted; the count goes back to what it was after the test
+    monkeypatch.setitem(cuda_g1.launch_counts, "ladder_w1", cuda_g1.launch_counts["ladder_w1"])
+    monkeypatch.setattr(cuda_g1, "lib", lambda: types.SimpleNamespace(curdle_ladder_w1=fake))
+    monkeypatch.setattr(cuda_g1, "check_tensor", check_any_device)
+    monkeypatch.setattr(cuda_g1, "stream_ptr", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    z = torch.zeros((24, m), dtype=torch.int32)
+    pts = tog.APoints(z, z, torch.zeros(m, dtype=torch.bool))
+    before = cuda_g1.launch_counts["ladder_w1"]
+    out = cuda_g1.scalar_mul_w1(pts, torch.zeros((16, m), dtype=torch.int32))
+    assert cuda_g1.launch_counts["ladder_w1"] == before + 1
+    assert tuple(out.x.shape) == (24, m)
+    g, blocks = seen["group"], seen["blocks"]
+    assert seen["m"] == m and g == cuda_g1.ladder_w1_group(m) in cuda_g1.GROUPS
+    assert blocks * cuda_g1.LADDER_THREADS >= m * g > (blocks - 1) * cuda_g1.LADDER_THREADS
 
 
 # A ragged width with every branch of the formulas in one 8-lane stretch (one

@@ -83,6 +83,41 @@ def test_split_one_is_the_unsplit_scan(scanned):
         assert np.array_equal(to_reference(got), np.asarray(want))
 
 
+@pytest.fixture(scope="module")
+def full_scanned(scanned):
+    """The records of `scanned` with lane 11 of window 1 holding one point at
+    every step (so the complete add doubles in phase A, in phase B where two
+    sub-chain sums are equal, and in phase C), and the JAX package's
+    complete scan of them."""
+    rec = scanned[0].clone().reshape(49, W, T, L)
+    rec[:, 1, :, 11] = rec[:, 1, :1, 11]
+    rec = rec.reshape(49, W * T * L)
+    want = jax.jit(jstream._scan_records_xla, static_argnums=(1, 2, 3))(jnp.asarray(to_reference(rec)), W, T, L)
+    return rec, want
+
+
+@pytest.mark.parametrize("split", [1, 2, 4])
+def test_full_scan_ref_split_equals_jax(full_scanned, split):
+    """`scan_records_ref` in `split` sub-chains against the JAX package's
+    complete scan: limb for limb unsplit, every prefix and total the same
+    point at K > 1."""
+    rec, (jp, jt) = full_scanned
+    pref, tot = tstream.scan_records_ref(rec, W, T, L, split=split)
+    assert tuple(pref.shape) == (72, W, T * L) and tuple(tot.shape) == (72, W, L)
+    if split == 1:
+        assert np.array_equal(to_reference(pref), np.asarray(jp))
+        assert np.array_equal(to_reference(tot), np.asarray(jt))
+    else:
+        keep_p, keep_t = np.ones((W, T * L), bool), np.ones((W, L), bool)
+        assert _host(pref, keep_p) == _host(from_reference(np.asarray(jp), "cpu"), keep_p)
+        assert _host(tot, keep_t) == _host(from_reference(np.asarray(jt), "cpu"), keep_t)
+    # the all-equal lane: step t holds (t + 1) * P
+    r = rec[:, T * L + 11 : T * L + 12]
+    base = tog.unpack_points(tog.APoints(r[:24], r[24:48], r[48] != 0))[0]
+    lane = pref.reshape(72, W, T, L)[:, 1, :, 11]
+    assert _host(lane, np.ones(T, bool)) == [base * Fr(t + 1) for t in range(T)]
+
+
 def test_split_steps():
     assert tstream.split_steps(256, 8) == 8
     assert tstream.split_steps(8, 16) == 8  # at most T

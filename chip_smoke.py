@@ -3,7 +3,9 @@
 sources in this checkout, hold each against its plain PyTorch version, and
 drive the package end to end through its entry points: `msm()` on the
 streaming Pippenger (direct and routed gather), on the GLV ladder and on the
-sort-based engines, the segmented ladder MSM and the vector ops.
+sort-based engines, the segmented ladder MSM, the vector ops, and the Whisk
+protocol (one proof on the host backend; batched verification, its tracker
+decode and lockstep batch proving on the card).
 
     python3 chip_smoke.py            # needs one CUDA device; exits 0 on success
 
@@ -51,6 +53,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the host) and n = 8192 (a 256-element sample against the host,
              the sum of the whole output against the discrete-log identity);
              the bitwise ladder cross-checks the windowed one at n = 8192
+  whisk_single  the Whisk API at ell = 124 (n = 128): a shuffle proof, its
+             verification and a tracker proof, REPS times each (wall median,
+             min, max), a flipped byte rejected; no kernel launch and no
+             device span (n < DEVICE_MIN: the host backend); the proof bytes
+             equal those of the pure-Python curve and transcript (the oracle,
+             CURDLEPROOFS_TRANSCRIPT_NATIVE=0) under the same seed
+  whisk_batch_verify  64 proofs by the thread prover, then one
+             AreValidWhiskShuffleProofs: true, false with a flipped byte; the
+             merged MSM's engine and width (the streaming Pippenger), the
+             spans (decode, transcript replay, dedup, pack, host prep,
+             device, combine); scan_sel, gather_u32 and point_op launched
+  decompress the batched verifier's 31,744 tracker points decoded on the
+             card (ops.compress) and by the host C decoder: equal; both times
+  whisk_lockstep_prove  the same 64 proofs by the lockstep prover (64 x
+             128-lane segmented MSMs, merged scales and folds): byte for byte
+             the thread prover's; ladder_glv_w3, ladder_w3 and point_op
+             launched; both walls
   kernel_times  each kernel at the shapes the phases above give it vs its
              plain version (equality), timed with CUDA events, beside the
              least time the card could take; scan_sel at every split (the
@@ -74,7 +93,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              4,096, 6,144, 8,192, 12,288 and 16,383 lanes, at every group the
              same way.
              Launch counts are those of
-             the eight main-path phases above: set to 0 just before each,
+             the main-path phases above (the eight MSM and vector phases and
+             the three Whisk phases with kernels): set to 0 just before each,
              read just after it
   group_ab   the groups the wrappers pick against one thread a lane, in
              turns: msm() at 2^16 (device span, wall), the vector ops'
@@ -85,7 +105,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit. `--rehearse-cpu` walks the same control flow at
 a tiny size on the CPU with the plain versions, to find faults without a
-card; it prints no result and exits 2. `--product-variants` adds a phase
+card (the Whisk phases at ell = 4 and K = 4, with DEVICE_MIN and
+DECOMPRESS_DEVICE_MIN lowered so the merged MSMs and the decode take the
+tensor code); it prints no result and exits 2. `--product-variants` adds a phase
 after kernel_times: the sources built once per entry of PRODUCT_VARIANTS
 (the field arithmetic on carry chains, the default; the arithmetic before
 it, cios64; by reference; inlined; each scan with the other's register
@@ -104,6 +126,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -112,9 +135,12 @@ import numpy as np
 import torch
 
 from curdleproofs_tpu_torch import G1, Fr, msm
+from curdleproofs_tpu_torch import protocol as P
+from curdleproofs_tpu_torch import vectors
 from curdleproofs_tpu_torch import curve as hcurve
 from curdleproofs_tpu_torch.curve import msm_host
 from curdleproofs_tpu_torch.fields import FQ_MOD, FR_MOD
+from curdleproofs_tpu_torch.ops import compress as ocompress
 from curdleproofs_tpu_torch.ops import cuda_g1
 from curdleproofs_tpu_torch.ops import g1 as og
 from curdleproofs_tpu_torch.ops import gather as ogather
@@ -128,6 +154,7 @@ from curdleproofs_tpu_torch.ops import vector as ovec
 from curdleproofs_tpu_torch.ops.fieldspec import FQ_SPEC, from_reference, ints_to_limbs
 from curdleproofs_tpu_torch.utils import host_native
 from curdleproofs_tpu_torch.utils.profiling import metrics
+from curdleproofs_tpu_torch.utils.rng import ProofRng
 
 # Least-time model of the card (NVIDIA H100 SXM data sheet): HBM3 at
 # 3.35 TB/s; 32-bit integer multiply-adds at half the 67 TFLOP/s fp32 rate's
@@ -1048,6 +1075,197 @@ def phase_vector_ops(bases, scalars, coef, dev, n_small, n_big, n_sample, rng, p
             if not out[str(n_big)][name]["launches"].get(kernel):
                 fail(f"{name} never launched {kernel}")
     return _counts()
+
+
+# ---------------------------------------------------------------------------
+# phases: the Whisk protocol through its entry points
+# ---------------------------------------------------------------------------
+
+
+def _trackers(rng, ell):
+    """ell trackers (r*G, k*r*G) from a seeded ProofRng, on the host backend."""
+    rs = [rng.random_scalar() for _ in range(ell)]
+    ks = [rng.random_scalar() for _ in range(ell)]
+    r_G = hcurve.mul_host_batch([G1()] * ell, rs)
+    blob_r = hcurve.compress_host_batch(r_G)
+    blob_k = hcurve.compress_host_batch(hcurve.mul_host_batch(r_G, ks))
+    return [P.WhiskTracker(blob_r[48 * i : 48 * i + 48], blob_k[48 * i : 48 * i + 48]) for i in range(ell)]
+
+
+def _spans(rep, names):
+    return {k: rep[k]["total_time_s"] for k in names if k in rep}
+
+
+def _post_bytes(results):
+    return [(b"".join(t.r_G + t.k_r_G for t in post), proof) for post, proof in results]
+
+
+def phase_whisk_single(crs, pre, dev, seed):
+    """One shuffle proof, its verification and a tracker proof through the
+    Whisk API at the CRS's ell, REPS times each: at n = ell + 4 < DEVICE_MIN
+    every vector operation runs on the host backend, so no kernel launches.
+    The proof bytes equal those of the pure-Python curve and transcript
+    (the oracle) under the same seed."""
+    cuda_g1.reset_launch_counts()
+    metrics().reset()
+    walls = {"prove": [], "verify": [], "tracker_prove": [], "tracker_verify": []}
+    ok = True
+    for _ in range(REPS):
+        (post, proof), ms = wall_ms(lambda: P.GenerateWhiskShuffleProof(crs, pre, ProofRng(seed), device=dev), dev)
+        walls["prove"].append(ms / 1e3)
+        good, ms = wall_ms(lambda: P.IsValidWhiskShuffleProof(crs, pre, post, proof, device=dev), dev)
+        walls["verify"].append(ms / 1e3)
+        ok = ok and good
+        k = ProofRng(seed + 1).random_scalar()
+        r_G = G1.from_compressed_bytes_unchecked(post[0].r_G)
+        tracker = P.WhiskTracker(post[0].r_G, (r_G * k).to_compressed_bytes())
+        k_commit = (G1() * k).to_compressed_bytes()
+        tproof, ms = wall_ms(lambda: P.GenerateWhiskTrackerProof(tracker, k, ProofRng(seed + 2), device=dev), dev)
+        walls["tracker_prove"].append(ms / 1e3)
+        good, ms = wall_ms(lambda: P.IsValidWhiskOpeningProof(tracker, k_commit, tproof, device=dev), dev)
+        walls["tracker_verify"].append(ms / 1e3)
+        ok = ok and good
+    launches = _counts()
+    touched = sorted(k for k in metrics().report() if k.startswith(("msm.", "vectors.")))
+    bad = bytearray(proof)
+    bad[-40] ^= 1
+    rejects = not P.IsValidWhiskShuffleProof(crs, pre, post, bytes(bad), device=dev)
+    # the oracle: pure-Python curve and transcript, the same seed
+    t0 = time.perf_counter()
+    os.environ["CURDLEPROOFS_TRANSCRIPT_NATIVE"] = "0"
+    try:
+        with hcurve.oracle():
+            opost, oproof = P.GenerateWhiskShuffleProof(crs, pre, ProofRng(seed), device=dev)
+    finally:
+        del os.environ["CURDLEPROOFS_TRANSCRIPT_NATIVE"]
+    oracle_s = time.perf_counter() - t0
+    oracle_ok = oproof == proof and _post_bytes([(opost, oproof)]) == _post_bytes([(post, proof)])
+    emit(
+        {
+            "phase": "whisk_single", "ell": crs.ell, "n": crs.ell + crs.n_blinders, "proof_bytes": len(proof),
+            "valid": ok, "flipped_byte_rejected": rejects, "oracle_bytes_equal": oracle_ok,
+            "oracle_prove_s": oracle_s, "wall_s": {k: _wall_stats(v) for k, v in walls.items()},
+            "card_touched": bool(sum(launches.values()) or touched), "launches": launches,
+        }
+    )
+    if not (ok and rejects and oracle_ok):
+        fail(f"whisk_single: valid {ok}, flipped byte rejected {rejects}, oracle bytes equal {oracle_ok}")
+    if sum(launches.values()) or touched:
+        fail(f"whisk_single reached the card at n = {crs.ell + 4}: launches {launches}, spans {touched}")
+    return launches
+
+
+def phase_whisk_batch_verify(crs, pres, dev, seed, proofs):
+    """K shuffle proofs made by the thread prover, then ONE batched
+    verification: the tracker decode of 4*ell*K points (ops.compress on the
+    card) and one merged MSM (the streaming Pippenger from STREAM_MIN bases).
+    True, and False with one proof byte flipped. Stores the proofs in
+    `proofs` for the lockstep phase."""
+    (results, prove_ms) = wall_ms(lambda: P.GenerateWhiskShuffleProofs(crs, pres, ProofRng(seed), device=dev), dev)
+    proofs["thread"], proofs["thread_s"] = results, prove_ms / 1e3
+    instances = [(pre, post, proof) for pre, (post, proof) in zip(pres, results)]
+    cuda_g1.reset_launch_counts()
+    metrics().reset()
+    ok, ms = wall_ms(lambda: P.AreValidWhiskShuffleProofs(crs, instances, device=dev), dev)
+    launches = _counts()
+    rep = metrics().report()
+    engine = next((m for m in ("stream", "ladder", "hostsort", "pippenger") if f"msm.{m}" in rep), "host")
+    width = rep[f"msm.{engine}"]["total_items"] if engine != "host" else 0
+    pre0, post0, pb0 = instances[0]
+    bad = bytearray(pb0)
+    bad[60] ^= 1
+    rejected, bad_ms = wall_ms(
+        lambda: not P.AreValidWhiskShuffleProofs(crs, [(pre0, post0, bytes(bad))] + instances[1:], device=dev), dev
+    )
+    spans = _spans(rep, ("whisk.batch.decode", "whisk.batch.replay", "msm_accumulator.dedup", "vectors.pack",
+                         f"msm.{engine}", f"msm.{engine}.host_prep", f"msm.{engine}.device", f"msm.{engine}.combine"))
+    emit(
+        {
+            "phase": "whisk_batch_verify", "K": len(pres), "ell": crs.ell, "thread_prove_s": prove_ms / 1e3,
+            "valid": ok, "flipped_byte_rejected": rejected, "wall_s": ms / 1e3, "wall_s_flipped": bad_ms / 1e3,
+            "merged_msm": {"engine": engine, "bases": width, "msm_calls": rep.get(f"msm.{engine}", {}).get("calls")},
+            "decoded_points": rep.get("whisk.batch.decode", {}).get("total_items", 0),
+            "spans_s": spans, "launches": launches,
+        }
+    )
+    if not (ok and rejected):
+        fail(f"whisk_batch_verify: valid {ok}, flipped byte rejected {rejected}")
+    if dev.type == "cuda":
+        missing = [k for k in ("scan_sel", "gather_u32", "point_op") if not launches[k]]
+        if missing or engine != "stream":
+            fail(f"whisk_batch_verify: the merged MSM ran on {engine}, {missing} never launched")
+    return launches
+
+
+def phase_decompress(pres, proofs, dev):
+    """The batched verifier's tracker batch (pre and post columns of every
+    instance, 4*ell*K points) decoded on the card (ops.compress) and by the
+    host C decoder (csrc/g1_host.c, across host threads): the same points."""
+    blob = b"".join(
+        b"".join(t.r_G for t in pre) + b"".join(t.k_r_G for t in pre)
+        + b"".join(t.r_G for t in post) + b"".join(t.k_r_G for t in post)
+        for pre, (post, _) in zip(pres, proofs["thread"])
+    )
+    encs = [blob[48 * i : 48 * i + 48] for i in range(len(blob) // 48)]
+    ocompress.batch_decompress_to_host(encs[:64], dev)  # warm-up
+    dev_pts, dev_ms = wall_ms(lambda: ocompress.batch_decompress_to_host(encs, dev), dev)
+    (ap, _), chain_ms = wall_ms(lambda: ocompress.batch_decompress(encs, dev), dev)
+    route = hcurve.DECOMPRESS_DEVICE_MIN
+    hcurve.DECOMPRESS_DEVICE_MIN = len(encs) + 1  # the host backend
+    try:
+        host_pts, host_ms = wall_ms(lambda: hcurve.decompress_host_batch(blob), dev)
+    finally:
+        hcurve.DECOMPRESS_DEVICE_MIN = route
+    equal = dev_pts == host_pts
+    emit(
+        {
+            "phase": "decompress", "points": len(encs), "equal": equal, "device_s": dev_ms / 1e3,
+            "device_chain_s": chain_ms / 1e3, "host_c_s": host_ms / 1e3,
+            "host_threads": min(8, os.cpu_count() or 1),
+        }
+    )
+    if not equal:
+        fail("decompress: the card's decode disagrees with the host C decoder")
+
+
+def phase_whisk_lockstep_prove(crs, pres, dev, seed, proofs, device_min):
+    """The same K proofs by the lockstep prover: every point operation merged
+    across the K provers (64 x 128-lane segmented MSMs on ladder_glv_w3, the
+    scales and folds on ladder_w3 and point_op), the merges of device_min
+    lanes or more on the card. Byte for byte the thread prover's proofs."""
+    cuda_g1.reset_launch_counts()
+    metrics().reset()
+    os.environ["CURDLEPROOFS_BATCH_PROVE"] = "lockstep"
+    default_min, vectors.DEVICE_MIN = vectors.DEVICE_MIN, device_min
+    try:
+        results, ms = wall_ms(lambda: P.GenerateWhiskShuffleProofs(crs, pres, ProofRng(seed), device=dev), dev)
+    finally:
+        del os.environ["CURDLEPROOFS_BATCH_PROVE"]
+        vectors.DEVICE_MIN = default_min
+    launches = _counts()
+    rep = metrics().report()
+    equal = _post_bytes(results) == _post_bytes(proofs["thread"])
+    emit(
+        {
+            "phase": "whisk_lockstep_prove", "K": len(pres), "ell": crs.ell, "equal_to_thread_prover": equal,
+            "wall_s": ms / 1e3, "thread_prover_wall_s": proofs["thread_s"],
+            "segmented_msms": rep.get("msm.ladder_seg", {}).get("calls", 0),
+            # lockstep.<kind>: every merged step of that kind (calls, seconds);
+            # lockstep.<kind>.device: the steps that ran on the card
+            "merged_steps": {k: [v["calls"], v["total_time_s"]] for k, v in rep.items()
+                             if k.startswith("lockstep.")},
+            "spans_s": _spans(rep, ("msm.ladder_seg", "msm.ladder_seg.decompose", "msm.ladder_seg.device",
+                                    "msm.ladder_seg.readback")),
+            "launches": launches,
+        }
+    )
+    if not equal:
+        fail("whisk_lockstep_prove: the lockstep proofs differ from the thread prover's")
+    if dev.type == "cuda":
+        missing = [k for k in ("ladder_glv_w3", "ladder_w3", "point_op") if not launches[k]]
+        if missing:
+            fail(f"whisk_lockstep_prove: {missing} never launched")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2016,6 +2234,13 @@ def main() -> int:
         n_main, n_redo, n_sort = 128, 128, 20
         n_ladder, small_sizes, seg, m_edge = 63, (17, 20), (4, 4), 20
         n_vec_small, n_vec_big, n_sample = 6, 12, 4
+        ell, k_proofs = 4, 4
+        # the batched verifier's merged MSM (about 200 bases) on the stream
+        # path and its decode (64 points) on the tensor code; one proof's
+        # MSMs (at most 70 bases) stay on the host backend; the lockstep
+        # merges of 16 lanes and more (4 provers) on the tensor code
+        vectors.DEVICE_MIN, hcurve.DECOMPRESS_DEVICE_MIN = 128, 32
+        lockstep_min = 16
         REPS = 1
         gpu_line = "cpu rehearsal"
     else:
@@ -2026,6 +2251,8 @@ def main() -> int:
         n_main, n_redo, n_sort = 1 << 16, 1 << 14, 1 << 12
         n_ladder, small_sizes, seg, m_edge = omsm.STREAM_MIN - 1, (17, 124, 4096), (64, 128), 256
         n_vec_small, n_vec_big, n_sample = 124, 8192, 256
+        ell, k_proofs = 124, 64  # the Whisk spec's ell; a batch of 64 shuffles
+        lockstep_min = vectors.DEVICE_MIN
         gpu_line = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True,
@@ -2086,6 +2313,20 @@ def main() -> int:
             point_widths,
         ),
     }
+    # the Whisk protocol through its entry points: one proof, K proofs
+    # verified in one batch, their tracker decode, K proofs in lockstep
+    prng = ProofRng(args.seed)
+    crs = P.CurdleproofsCrs.new(ell, P.N_BLINDERS, prng)
+    pres = [_trackers(prng, ell) for _ in range(k_proofs)]
+    proofs = {}
+    by_phase["whisk_single"] = timed_phase("whisk_single", phase_whisk_single, crs, pres[0], dev, args.seed + 1)
+    by_phase["whisk_batch_verify"] = timed_phase(
+        "whisk_batch_verify", phase_whisk_batch_verify, crs, pres, dev, args.seed + 2, proofs
+    )
+    timed_phase("decompress", phase_decompress, pres, proofs, dev)
+    by_phase["whisk_lockstep_prove"] = timed_phase(
+        "whisk_lockstep_prove", phase_whisk_lockstep_prove, crs, pres, dev, args.seed + 2, proofs, lockstep_min
+    )
     launches = {k: sum(c[k] for c in by_phase.values()) for k in cuda_g1.KERNEL_NAMES}
 
     timed_phase(

@@ -1,10 +1,12 @@
 """curdleproofs_tpu_torch: the PyTorch/CUDA port of the JAX package beside it.
 
 Same module names as the JAX package so a reader finds the counterpart:
-`fields` and `curve` are the exact host arithmetic (and the oracle), `ops`
-holds the tensor code and the hand-written CUDA kernels, `utils` the device
-resolution and call metrics. Entry points run on the GPU unless the caller
-passes device="cpu".
+`fields` and `curve` are the exact host arithmetic (the pure-Python oracle
+and the native host backend), `transcript` the Fiat-Shamir oracle,
+`vectors` and `protocol` the shuffle argument and the Whisk API, `ops`
+the tensor code and the hand-written CUDA kernels, `utils` the device
+resolution, the native host library, the lockstep batch prover and call
+metrics. Entry points run on the GPU unless the caller passes device="cpu".
 """
 from curdleproofs_tpu_torch.curve import G1
 from curdleproofs_tpu_torch.fields import Fr
@@ -16,8 +18,10 @@ from curdleproofs_tpu_torch.ops.vector import (
     scale_points,
     scale_points_common,
 )
+from curdleproofs_tpu_torch.protocol import *  # noqa: F401,F403  (the Whisk API and the proofs)
+from curdleproofs_tpu_torch.protocol import __all__ as _protocol_all
 
-__all__ = [
+__all__ = _protocol_all + [
     "Fr",
     "G1",
     "add_points",

@@ -1,11 +1,15 @@
 """Exact host-side BLS12-381 G1 group arithmetic and compressed serialization.
 
 This is the host orchestration / serde / oracle counterpart of the CUDA kernels
-behind `curdleproofs_tpu_torch.ops.g1`. Pure Python: there is no native host
-backend in this package. The behaviour contract mirrors the reference's
-native `G1Point` (py_arkworks_bls12381-stubs/__init__.pyi:5-30): add/sub/neg,
-scalar mul, identity, equality, ZCash 48-byte compressed encode/decode with
-checked (subgroup-verifying) and unchecked variants. The generator's canonical
+behind `curdleproofs_tpu_torch.ops.g1`. Two backends give the same values:
+the pure-Python code of this file, which is the oracle, and the package's
+native host library (csrc/g1_host.c through utils/host_native), which the
+`G1` methods and the batch helpers take wherever the library can be built.
+The choice is made at the first call, not at import. The behaviour contract
+mirrors the reference's native `G1Point`
+(py_arkworks_bls12381-stubs/__init__.pyi:5-30): add/sub/neg, scalar mul,
+identity, equality, ZCash 48-byte compressed encode/decode with checked
+(subgroup-verifying) and unchecked variants. The generator's canonical
 compressed form is pinned in tests (reference test_curdleproofs.py:179-180).
 
 Internally points are affine (x, y) Python ints with an infinity flag; scalar
@@ -13,7 +17,10 @@ multiplication runs through Jacobian coordinates to avoid per-step inversions.
 """
 from __future__ import annotations
 
-from typing import Iterable, List, Optional, Tuple
+import contextlib
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterable, Iterator, List, Optional, Tuple
 
 from curdleproofs_tpu_torch.fields import (
     CURVE_B,
@@ -23,6 +30,7 @@ from curdleproofs_tpu_torch.fields import (
     G1_GEN_X,
     G1_GEN_Y,
 )
+from curdleproofs_tpu_torch.utils import host_native
 
 # Jacobian point = (X, Y, Z) ints; Z == 0 encodes infinity.
 _JINF = (1, 1, 0)
@@ -147,6 +155,8 @@ class G1:
     # -- group ops ----------------------------------------------------------
 
     def __add__(self, other: "G1") -> "G1":
+        if native_enabled():
+            return _nat_add(self, other)
         return G1._from_jacobian(_jadd(self._jacobian(), other._jacobian()))
 
     def __sub__(self, other: "G1") -> "G1":
@@ -158,6 +168,8 @@ class G1:
         return G1(self.x, P - self.y)
 
     def __mul__(self, scalar: Fr) -> "G1":
+        if native_enabled():
+            return _nat_mul(self, scalar)
         return G1._from_jacobian(_jmul(self._jacobian(), scalar.v))
 
     def __rmul__(self, scalar: Fr) -> "G1":
@@ -183,6 +195,9 @@ class G1:
         return self.y * self.y % P == (self.x * self.x % P * self.x + CURVE_B) % P
 
     def in_subgroup(self) -> bool:
+        if native_enabled():
+            pb, ib = _enc96(self)
+            return host_native.g1_subgroup_check_batch(pb, bytes([ib])) < 0
         return G1._from_jacobian(_jmul(self._jacobian(), FR_MOD)).inf
 
     # -- serde: ZCash 48-byte compressed encoding ---------------------------
@@ -202,6 +217,20 @@ class G1:
     def from_compressed_bytes_unchecked(cls, data: bytes) -> "G1":
         """Decode without the subgroup check (reference util.py:35-36).
         Still requires a well-formed encoding with x on the curve."""
+        if native_enabled() and len(data) == 48:
+            return _nat_decode(data, False)[0]
+        return cls._oracle_decode(data, False)
+
+    @classmethod
+    def from_compressed_bytes(cls, data: bytes) -> "G1":
+        """Checked decode: additionally verifies subgroup membership."""
+        if native_enabled() and len(data) == 48:
+            return _nat_decode(data, True)[0]
+        return cls._oracle_decode(data, True)
+
+    @classmethod
+    def _oracle_decode(cls, data: bytes, check: bool) -> "G1":
+        """The pure-Python decoder, the oracle of both decodes."""
         if len(data) != 48:
             raise ValueError(f"G1 compressed encoding must be 48 bytes, got {len(data)}")
         flags = data[0]
@@ -220,13 +249,8 @@ class G1:
         y_is_largest = y > (P - 1) // 2
         if bool(flags & 0x20) != y_is_largest:
             y = P - y
-        return cls(x, y)
-
-    @classmethod
-    def from_compressed_bytes(cls, data: bytes) -> "G1":
-        """Checked decode: additionally verifies subgroup membership."""
-        p = cls.from_compressed_bytes_unchecked(data)
-        if not G1._from_jacobian(_jmul(p._jacobian(), FR_MOD)).inf:
+        p = cls(x, y)
+        if check and not G1._from_jacobian(_jmul(p._jacobian(), FR_MOD)).inf:
             raise ValueError("point not in the prime-order subgroup")
         return p
 
@@ -238,19 +262,185 @@ G1_GENERATOR = G1()
 G1_IDENTITY = G1.identity()
 
 
+# ---------------------------------------------------------------------------
+# The native backend (csrc/g1_host.c): Montgomery-limb Fq, Jacobian G1,
+# Pippenger MSM, batched serde, for the protocol's small batches; the large
+# MSMs go to the card (ops.msm). The pure-Python code above stays the
+# behavioural spec and the oracle. Which one runs is settled at the first
+# call: the native one wherever the library is built or a C compiler can
+# build it (host_native.available()), the oracle elsewhere and inside
+# `oracle()`.
+# ---------------------------------------------------------------------------
+
+_native: Optional[bool] = None  # None until the first call settles it
+
+
+def native_enabled() -> bool:
+    """Whether the G1 methods and batch helpers take the native backend."""
+    global _native
+    if _native is None:
+        _native = host_native.available()
+    return _native
+
+
+@contextlib.contextmanager
+def oracle() -> Iterator[None]:
+    """Run the block on the pure-Python oracle, the native backend off (for
+    every thread: the switch is the module's)."""
+    global _native
+    prev = native_enabled()
+    _native = False
+    try:
+        yield
+    finally:
+        _native = prev
+
+
+def _enc96(p: G1) -> Tuple[bytes, int]:
+    if p.inf:
+        return b"\x00" * 96, 1
+    return p.x.to_bytes(48, "big") + p.y.to_bytes(48, "big"), 0
+
+
+def _enc_batch(points: List[G1]) -> Tuple[bytes, bytes]:
+    return (
+        b"".join(_enc96(p)[0] for p in points),
+        bytes(1 if p.inf else 0 for p in points),
+    )
+
+
+def _dec96(b: bytes, inf: int) -> G1:
+    if inf:
+        return G1.identity()
+    return G1(int.from_bytes(b[:48], "big"), int.from_bytes(b[48:96], "big"))
+
+
+def _dec_batch(pb: bytes, ib: bytes) -> List[G1]:
+    return [_dec96(pb[96 * i : 96 * i + 96], ib[i]) for i in range(len(ib))]
+
+
+def _scalar_bytes(scalars: List[Fr]) -> bytes:
+    return b"".join(s.v.to_bytes(32, "little") for s in scalars)
+
+
+def _nat_add(a: G1, b: G1) -> G1:
+    pa, ia = _enc96(a)
+    pb, ib = _enc96(b)
+    op, oi = host_native.g1_add_batch(pa, bytes([ia]), pb, bytes([ib]))
+    return _dec96(op, oi[0])
+
+
+def _nat_mul(p: G1, scalar: Fr) -> G1:
+    pb, ib = _enc96(p)
+    op, oi = host_native.g1_mul_batch(pb, bytes([ib]), scalar.v.to_bytes(32, "little"))
+    return _dec96(op, oi[0])
+
+
+def _reject(data: bytes, i: int, check: bool) -> None:
+    """Raise the oracle's error for encoding i, which the native decoder
+    refused: the messages are the oracle's, word for word."""
+    G1._oracle_decode(data[48 * i : 48 * i + 48], check)
+    raise AssertionError(f"the native decoder refused encoding {i}, which the oracle accepts")
+
+
+def _nat_decode(data: bytes, check: bool) -> List[G1]:
+    pb, ib, bad = host_native.g1_decompress_batch(data, check)
+    if bad >= 0:
+        _reject(data, bad, check)
+    return _dec_batch(pb, ib)
+
+
 def g1_sum(points: Iterable[G1]) -> G1:
+    pts = list(points)
+    if native_enabled() and len(pts) > 4:
+        return _dec96(*host_native.g1_sum(*_enc_batch(pts)))
     acc = _JINF
-    for p in points:
+    for p in pts:
         acc = _jadd(acc, p._jacobian())
     return G1._from_jacobian(acc)
 
 
 def msm_host(bases: List[G1], scalars: List[Fr]) -> G1:
     """Exact host MSM (reference msm_accumulator.py:6-12 semantics): the
-    oracle every device MSM is held against."""
+    native Pippenger, or the oracle's double-and-add; the oracle every device
+    MSM is held against."""
     if len(bases) != len(scalars):
         raise ValueError("msm length mismatch")
+    if native_enabled():
+        pb, ib = _enc_batch(bases)
+        return _dec96(*host_native.g1_msm(pb, ib, _scalar_bytes(scalars)))
     acc = _JINF
     for b, s in zip(bases, scalars):
         acc = _jadd(acc, _jmul(b._jacobian(), s.v))
     return G1._from_jacobian(acc)
+
+
+def mul_host_batch(bases: List[G1], scalars: List[Fr]) -> List[G1]:
+    """[b_i * s_i]: one native call for a whole vector of point muls."""
+    if len(bases) != len(scalars):
+        raise ValueError("mul_host_batch length mismatch")
+    if native_enabled():
+        pb, ib = _enc_batch(bases)
+        return _dec_batch(*host_native.g1_mul_batch(pb, ib, _scalar_bytes(scalars)))
+    return [b * s for b, s in zip(bases, scalars)]
+
+
+def add_host_batch(a: List[G1], b: List[G1]) -> List[G1]:
+    """[a_i + b_i] elementwise."""
+    if len(a) != len(b):
+        raise ValueError("add_host_batch length mismatch")
+    if native_enabled():
+        return _dec_batch(*host_native.g1_add_batch(*_enc_batch(a), *_enc_batch(b)))
+    return [x + y for x, y in zip(a, b)]
+
+
+def compress_host_batch(points: List[G1]) -> bytes:
+    """Concatenated 48-byte compressed encodings."""
+    if native_enabled():
+        return host_native.g1_compress_batch(*_enc_batch(points))
+    return b"".join(p.to_compressed_bytes() for p in points)
+
+
+# From this many points an unchecked batch decode runs on the caller's device
+# (ops.compress): one batched square-root chain for the whole batch.
+DECOMPRESS_DEVICE_MIN = int(os.environ.get("CURDLEPROOFS_DECOMPRESS_DEVICE_MIN", str(1 << 13)))
+# from this many points the native decode is split across host threads
+_DECOMPRESS_THREADS_MIN = 2048
+
+
+def decompress_host_batch(data: bytes, check: bool = False, device=None) -> List[G1]:
+    """Decode len(data)/48 compressed points (ValueError on any bad one).
+
+    An unchecked batch of at least DECOMPRESS_DEVICE_MIN points decodes on
+    `device` (ops.compress; None is the card, and raises without one); every
+    other batch on the host backend."""
+    if len(data) % 48 != 0:
+        raise ValueError("compressed batch length must be a multiple of 48")
+    npts = len(data) // 48
+    if not check and npts >= DECOMPRESS_DEVICE_MIN:
+        from curdleproofs_tpu_torch.ops import compress as ocompress
+        from curdleproofs_tpu_torch.utils.device import resolve_device
+        from curdleproofs_tpu_torch.utils.errors import SerdeError
+
+        dev = resolve_device(device)
+        try:
+            return ocompress.batch_decompress_to_host([data[48 * i : 48 * i + 48] for i in range(npts)], dev)
+        except SerdeError as e:
+            raise ValueError(str(e)) from e
+    if native_enabled():
+        nw = min(8, os.cpu_count() or 1)
+        if npts >= _DECOMPRESS_THREADS_MIN and nw > 1:
+            # the native call drops the interpreter lock and each point costs
+            # a 381-bit square-root chain: split a big batch across threads
+            step = -(-npts // nw) * 48
+            chunks = [data[o : o + step] for o in range(0, len(data), step)]
+            with ThreadPoolExecutor(max_workers=nw) as pool:
+                outs = list(pool.map(lambda b: host_native.g1_decompress_batch(b, check), chunks))
+            res: List[G1] = []
+            for k, (pb, ib, bad) in enumerate(outs):
+                if bad >= 0:
+                    _reject(data, k * (step // 48) + bad, check)
+                res.extend(_dec_batch(pb, ib))
+            return res
+        return _nat_decode(data, check)
+    return [G1._oracle_decode(data[48 * i : 48 * i + 48], check) for i in range(npts)]

@@ -825,10 +825,13 @@ def msm(
     c: Optional[int] = None,
     method: str = "auto",
     device: DeviceArg = None,
+    packed: Optional[APoints] = None,
 ) -> G1:
     """Host-facing MSM over host points/scalars. Runs on the GPU unless the
     caller passes device="cpu" (the plain PyTorch versions); with no CUDA
-    device and no explicit "cpu" it raises.
+    device and no explicit "cpu" it raises. `packed` is `bases` already
+    packed on that device (`vectors.PointVec` keeps them), skipping the
+    pack.
 
     method "auto": exact host arithmetic up to HOST_THRESHOLD points, the GLV
     ladder below STREAM_MIN, the streaming Pippenger (direct gather) from
@@ -850,7 +853,7 @@ def msm(
     if method not in ("stream", "ladder", "hostsort", "pippenger"):
         raise ValueError(f"msm: unknown method {method!r}")
     with timed(f"msm.{method}.pack"):
-        pts = og.pack_points(list(bases), dev)
+        pts = og.pack_points(list(bases), dev) if packed is None else packed
         scs_np = np.asarray(ints_to_limbs([s.v for s in scalars], 16), dtype=np.uint32)
     if method == "ladder":
         # no pad to a multiple of 128 as in the JAX package (a compiled-shape

@@ -1,18 +1,19 @@
-"""The package's native host library: GLV split, streaming-MSM host prep and
-the route solver, in C with a plain C interface (../csrc/host_prep.c,
-../csrc/route.c).
+"""The package's native host library: GLV split, streaming-MSM host prep,
+the route solver, the host G1 backend and the Keccak / STROBE / Merlin
+transcript, in C with a plain C interface (../csrc/host_prep.c,
+../csrc/route.c, ../csrc/g1_host.c, ../csrc/keccak.c).
 
-Counterpart of the JAX package's `_g1_native.glv_decompose_batch`,
-`_g1_native.msm_prep_batch` and `_route_native.decompose`, which are CPython
-extensions there. Here the two sources are compiled into one shared library
-by the machine's C compiler at first use, into `build/` inside the package
-directory beside the CUDA libraries, and loaded with `ctypes`; the file name
-carries a hash of the sources and the flags, so an edit never loads a stale
-build. Nothing is built when this module is imported.
+Counterpart of the JAX package's `_g1_native`, `_keccak_native` and
+`_route_native`, which are CPython extensions there. Here the sources are
+compiled into one shared library by the machine's C compiler at first use,
+into `build/` inside the package directory beside the CUDA libraries, and
+loaded with `ctypes`; the file name carries a hash of the sources and the
+flags, so an edit never loads a stale build. Nothing is built when this
+module is imported.
 
 Where the machine has no C compiler `available()` is false and the callers
-take their numpy versions, which give identical arrays (the tests hold one
-against the other). A compiler that is found and fails raises. ctypes drops
+take their numpy and pure-Python versions, which give identical arrays,
+points and bytes (the tests hold one against the other). A compiler that is found and fails raises. ctypes drops
 the interpreter lock for the length of a call, so calls from several threads
 run side by side (the route solves of ops.msm rely on it).
 """
@@ -34,7 +35,8 @@ import numpy as np
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("host_prep.c", "route.c")
+SOURCES = ("host_prep.c", "route.c", "g1_host.c", "keccak.c")
+HEADERS = ("glv_host.h",)  # hashed with the sources
 # no -march=native: the library's file name is shared between machines
 CC_FLAGS = ("-O3", "-fPIC", "-shared")
 OPENMP_FLAG = "-fopenmp"
@@ -43,6 +45,7 @@ _U8P = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _I32P = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _U64P = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
 _I, _I64 = ctypes.c_int, ctypes.c_int64
+_B = ctypes.c_char_p  # a bytes object in, a ctypes char buffer out
 # C entry points and their argument types (all return int)
 ENTRY_POINTS = {
     "curdle_host_openmp_threads": [],
@@ -52,6 +55,23 @@ ENTRY_POINTS = {
         ctypes.POINTER(ctypes.c_int32),
     ],
     "curdle_route_decompose": [_I, _I, _I, _I32P, _I32P, _I32P, _I32P],
+    # g1_host.c: points as 96-byte x || y plus one infinity byte each
+    "curdle_g1_msm": [_B, _B, _B, _I64, _B, _B],
+    "curdle_g1_mul_batch": [_B, _B, _B, _I64, _B, _B],
+    "curdle_g1_add_batch": [_B, _B, _B, _B, _I64, _B, _B],
+    "curdle_g1_sum": [_B, _B, _I64, _B, _B],
+    "curdle_g1_compress_batch": [_B, _B, _I64, _B],
+    "curdle_g1_decompress_batch": [_B, _I64, _I, _B, _B],
+    "curdle_g1_jacobian_to_affine_batch": [_B, _I64, _B, _B],
+    "curdle_g1_subgroup_check_batch": [_B, _B, _I64],
+    # keccak.c: the duplex state is a writable 203-byte buffer
+    "curdle_keccak_f1600": [_B],
+    "curdle_strobe_init": [_B, _I64, _B],
+    "curdle_strobe_op": [_B, _I, _B, _I64, _I, _B],
+    "curdle_merlin_write": [_B, _B, _I64, _B, _I64],
+    "curdle_merlin_write_many": [_B, _B, _I64, _B, _I64, _I64],
+    "curdle_merlin_read": [_B, _B, _I64, _B, _I64],
+    "curdle_merlin_challenge_scalars": [_B, _B, _I64, _I64, _B],
 }
 
 _lock = threading.Lock()
@@ -90,7 +110,7 @@ def _flags(openmp: bool) -> tuple:
 
 def library_path(openmp: bool) -> Path:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC_DIR / name).read_bytes())
     h.update(" ".join(_flags(openmp)).encode())
     return BUILD_DIR / f"libcurdle_host_{h.hexdigest()[:16]}.so"
@@ -225,3 +245,170 @@ def route_decompose(r: int, c: int, src: np.ndarray):
     idx3 = np.empty((W, r, c), np.int32)
     _check("route_decompose", lib().curdle_route_decompose(r, c, W, src, idx1, idx2, idx3))
     return idx1, idx2, idx3
+
+
+# ---------------------------------------------------------------------------
+# the host G1 backend (csrc/g1_host.c): bytes in, bytes out. A point is 96
+# bytes (x || y, big-endian canonical) plus one infinity byte, a scalar 32
+# little-endian bytes.
+# ---------------------------------------------------------------------------
+
+
+def _g1_check(name: str, rc: int) -> None:
+    if rc == 1:
+        raise MemoryError(f"{name}: out of memory")
+    if rc != 0:
+        raise ValueError(f"{name}: code {rc}")
+
+
+def _lengths(name: str, points96: bytes, inf: bytes) -> int:
+    n = len(inf)
+    if len(points96) != 96 * n:
+        raise ValueError(f"{name}: buffer length mismatch")
+    return n
+
+
+def g1_msm(points96: bytes, inf: bytes, scalars32: bytes) -> Tuple[bytes, int]:
+    """sum_i s_i * P_i -> (96 bytes, infinity flag)."""
+    n = _lengths("g1_msm", points96, inf)
+    if len(scalars32) != 32 * n:
+        raise ValueError("g1_msm: buffer length mismatch")
+    out, oinf = ctypes.create_string_buffer(96), ctypes.create_string_buffer(1)
+    _g1_check("g1_msm", lib().curdle_g1_msm(points96, inf, scalars32, n, out, oinf))
+    return out.raw, oinf.raw[0]
+
+
+def g1_mul_batch(points96: bytes, inf: bytes, scalars32: bytes) -> Tuple[bytes, bytes]:
+    """[s_i * P_i] -> (96 n bytes, n infinity flags)."""
+    n = _lengths("g1_mul_batch", points96, inf)
+    if len(scalars32) != 32 * n:
+        raise ValueError("g1_mul_batch: buffer length mismatch")
+    out, oinf = ctypes.create_string_buffer(96 * n), ctypes.create_string_buffer(n)
+    _g1_check("g1_mul_batch", lib().curdle_g1_mul_batch(points96, inf, scalars32, n, out, oinf))
+    return out.raw, oinf.raw
+
+
+def g1_add_batch(a96: bytes, ainf: bytes, b96: bytes, binf: bytes) -> Tuple[bytes, bytes]:
+    """[A_i + B_i] -> (96 n bytes, n infinity flags)."""
+    n = _lengths("g1_add_batch", a96, ainf)
+    if _lengths("g1_add_batch", b96, binf) != n:
+        raise ValueError("g1_add_batch: buffer length mismatch")
+    out, oinf = ctypes.create_string_buffer(96 * n), ctypes.create_string_buffer(n)
+    _g1_check("g1_add_batch", lib().curdle_g1_add_batch(a96, ainf, b96, binf, n, out, oinf))
+    return out.raw, oinf.raw
+
+
+def g1_sum(points96: bytes, inf: bytes) -> Tuple[bytes, int]:
+    """sum_i P_i -> (96 bytes, infinity flag)."""
+    n = _lengths("g1_sum", points96, inf)
+    out, oinf = ctypes.create_string_buffer(96), ctypes.create_string_buffer(1)
+    _g1_check("g1_sum", lib().curdle_g1_sum(points96, inf, n, out, oinf))
+    return out.raw, oinf.raw[0]
+
+
+def g1_compress_batch(points96: bytes, inf: bytes) -> bytes:
+    """The 48-byte compressed encodings, concatenated."""
+    n = _lengths("g1_compress_batch", points96, inf)
+    out = ctypes.create_string_buffer(48 * n)
+    _g1_check("g1_compress_batch", lib().curdle_g1_compress_batch(points96, inf, n, out))
+    return out.raw
+
+
+def g1_decompress_batch(comp48: bytes, check: bool) -> Tuple[bytes, bytes, int]:
+    """len(comp48) / 48 encodings -> (96 n bytes, n infinity flags, the index
+    of the first bad encoding or -1; the outputs from there on are
+    unwritten)."""
+    if len(comp48) % 48:
+        raise ValueError("g1_decompress_batch: length not a multiple of 48")
+    n = len(comp48) // 48
+    out, oinf = ctypes.create_string_buffer(96 * n), ctypes.create_string_buffer(n)
+    rc = lib().curdle_g1_decompress_batch(comp48, n, int(check), out, oinf)
+    return out.raw, oinf.raw, -1 - rc if rc < 0 else -1
+
+
+def g1_jacobian_to_affine_batch(xyz144: bytes) -> Tuple[bytes, bytes]:
+    """n Jacobian points (X || Y || Z, 48-byte big-endian canonical each) ->
+    (96 n bytes, n infinity flags)."""
+    if len(xyz144) % 144:
+        raise ValueError("g1_jacobian_to_affine_batch: length not a multiple of 144")
+    n = len(xyz144) // 144
+    out, oinf = ctypes.create_string_buffer(96 * n), ctypes.create_string_buffer(n)
+    _g1_check("g1_jacobian_to_affine_batch", lib().curdle_g1_jacobian_to_affine_batch(xyz144, n, out, oinf))
+    return out.raw, oinf.raw
+
+
+def g1_subgroup_check_batch(points96: bytes, inf: bytes) -> int:
+    """The index of the first point outside the prime-order subgroup, or -1."""
+    n = _lengths("g1_subgroup_check_batch", points96, inf)
+    rc = lib().curdle_g1_subgroup_check_batch(points96, inf, n)
+    return -1 - rc if rc < 0 else -1
+
+
+# ---------------------------------------------------------------------------
+# Keccak-f[1600] and the STROBE / Merlin duplex (csrc/keccak.c). The duplex
+# state is a writable 203-byte buffer the caller owns (a ctypes view of a
+# bytearray): [0:200] keccak state, [200] pos, [201] pos_begin,
+# [202] cur_flags.
+# ---------------------------------------------------------------------------
+
+STROBE_STATE_BYTES = 203
+_STROBE_ERRORS = {
+    1: "STROBE op continuation with mismatched flags",
+    2: "transport flags not supported",
+    3: "bad strobe opcode",
+    4: "bad length",
+}
+
+
+def _strobe_check(rc: int) -> None:
+    if rc:
+        raise ValueError(_STROBE_ERRORS.get(rc, f"strobe: code {rc}"))
+
+
+def keccak_f1600(state: bytes) -> bytes:
+    """Keccak-f[1600] of a 200-byte state (little-endian lanes)."""
+    if len(state) != 200:
+        raise ValueError("state must be exactly 200 bytes")
+    buf = ctypes.create_string_buffer(bytes(state), 200)
+    lib().curdle_keccak_f1600(buf)
+    return buf.raw
+
+
+def strobe_state(ba: bytearray):
+    """A ctypes view of a 203-byte bytearray, to pass as the duplex state."""
+    if len(ba) != STROBE_STATE_BYTES:
+        raise ValueError("strobe state must be a writable 203-byte buffer")
+    return (ctypes.c_char * STROBE_STATE_BYTES).from_buffer(ba)
+
+
+def strobe_init(state, label: bytes) -> None:
+    lib().curdle_strobe_init(label, len(label), state)
+
+
+def strobe_op(state, opcode: int, data: bytes = b"", more: bool = False, n: int = 0) -> Optional[bytes]:
+    """One STROBE operation: 0 meta_ad, 1 ad, 2 key (over data), 3 prf (n
+    bytes, returned)."""
+    out = ctypes.create_string_buffer(n) if opcode == 3 else None
+    _strobe_check(lib().curdle_strobe_op(state, opcode, data, n if opcode == 3 else len(data), int(more), out))
+    return out.raw if out is not None else None
+
+
+def merlin_write(state, label: bytes, msg: bytes) -> None:
+    _strobe_check(lib().curdle_merlin_write(state, label, len(label), msg, len(msg)))
+
+
+def merlin_write_many(state, label: bytes, blob: bytes, item_size: int) -> None:
+    _strobe_check(lib().curdle_merlin_write_many(state, label, len(label), blob, len(blob), item_size))
+
+
+def merlin_read(state, label: bytes, n: int) -> bytes:
+    out = ctypes.create_string_buffer(n)
+    _strobe_check(lib().curdle_merlin_read(state, label, len(label), out, n))
+    return out.raw
+
+
+def merlin_challenge_scalars(state, label: bytes, count: int) -> bytes:
+    """count accepted Fr draws, 32 little-endian bytes each."""
+    out = ctypes.create_string_buffer(32 * count)
+    _strobe_check(lib().curdle_merlin_challenge_scalars(state, label, len(label), count, out))
+    return out.raw

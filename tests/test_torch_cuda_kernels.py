@@ -352,3 +352,57 @@ def test_ladder_w1_groups(w1_lanes, card, group, m):
     assert cuda_g1.launch_counts["ladder_w1"] == before + 1
     assert _equal(got, [t[:, :m] for t in plain])
     assert og.jpoints_to_host(og.JPoints(*(t[:, :64] for t in got))) == want[:m]
+
+
+# ---- the Whisk protocol's card paths --------------------------------------
+
+
+def _trackers(rng, ell):
+    from curdleproofs_tpu_torch import curve
+    from curdleproofs_tpu_torch.protocol import WhiskTracker
+
+    r_G = curve.mul_host_batch([G1()] * ell, [rng.random_scalar() for _ in range(ell)])
+    k_r_G = curve.mul_host_batch(r_G, [rng.random_scalar() for _ in range(ell)])
+    a, b = curve.compress_host_batch(r_G), curve.compress_host_batch(k_r_G)
+    return [WhiskTracker(a[48 * i : 48 * i + 48], b[48 * i : 48 * i + 48]) for i in range(ell)]
+
+
+def test_whisk_batch_verify_launches_the_stream_kernels(card, monkeypatch):
+    """8 shuffle proofs at ell = 124 verified in one batch, with the merged
+    MSM on the streaming Pippenger (STREAM_MIN and DEVICE_MIN lowered) and
+    the tracker decode on the card: true, false with a flipped byte, and
+    scan_sel, gather_u32 and point_op launched."""
+    from curdleproofs_tpu_torch import curve, protocol as P, vectors
+    from curdleproofs_tpu_torch.ops import msm as omsm
+    from curdleproofs_tpu_torch.utils.rng import ProofRng
+
+    rng = ProofRng(8)
+    crs = P.CurdleproofsCrs.new(124, P.N_BLINDERS, rng)
+    pres = [_trackers(rng, 124) for _ in range(8)]
+    results = P.GenerateWhiskShuffleProofs(crs, pres, ProofRng(9), device=card)
+    instances = [(pre, post, proof) for pre, (post, proof) in zip(pres, results)]
+    monkeypatch.setattr(vectors, "DEVICE_MIN", 64)
+    monkeypatch.setattr(omsm, "STREAM_MIN", 2048)
+    monkeypatch.setattr(curve, "DECOMPRESS_DEVICE_MIN", 1024)
+    cuda_g1.reset_launch_counts()
+    assert P.AreValidWhiskShuffleProofs(crs, instances, device=card)
+    launched = dict(cuda_g1.launch_counts)
+    assert all(launched[k] >= 1 for k in ("scan_sel", "gather_u32", "point_op")), launched
+    bad = bytearray(instances[0][2])
+    bad[60] ^= 1
+    assert not P.AreValidWhiskShuffleProofs(crs, [instances[0][:2] + (bytes(bad),)] + instances[1:], device=card)
+
+
+def test_device_decompress_equals_the_host_decoder(card):
+    from curdleproofs_tpu_torch import curve
+    from curdleproofs_tpu_torch.ops import compress as ocompress
+
+    n = 8192
+    rng = random.Random(13)
+    pts = curve.mul_host_batch([G1()] * n, [Fr(rng.randrange(FR_MOD)) for _ in range(n)])
+    pts[5] = G1.identity()
+    blob = curve.compress_host_batch(pts)
+    encs = [blob[48 * i : 48 * i + 48] for i in range(n)]
+    assert ocompress.batch_decompress_to_host(encs, card) == pts
+    assert curve.decompress_host_batch(blob, device=card) == pts  # routed to the card at 8,192
+    assert curve.decompress_host_batch(blob, check=True) == pts  # the host decoder

@@ -34,6 +34,18 @@ print("BAD=" + ",".join(bad))
         "curdleproofs_tpu_torch.ops.route",
         "curdleproofs_tpu_torch.ops.glv",
         "curdleproofs_tpu_torch.utils.host_native",
+        "curdleproofs_tpu_torch.curve",
+        "curdleproofs_tpu_torch.ops.compress",
+        "curdleproofs_tpu_torch.vectors",
+        "curdleproofs_tpu_torch.transcript",
+        "curdleproofs_tpu_torch.transcript.oracle",
+        "curdleproofs_tpu_torch.protocol",
+        "curdleproofs_tpu_torch.protocol.whisk",
+        "curdleproofs_tpu_torch.protocol.shuffle",
+        "curdleproofs_tpu_torch.utils.lockstep",
+        "curdleproofs_tpu_torch.utils.serde",
+        "curdleproofs_tpu_torch.utils.rng",
+        "curdleproofs_tpu_torch.utils.errors",
         "chip_smoke",
     ],
 )

@@ -3,9 +3,10 @@
 sources in this checkout, hold each against its plain PyTorch version, and
 drive the package end to end through its entry points: `msm()` on the
 streaming Pippenger (direct and routed gather), on the GLV ladder and on the
-sort-based engines, the segmented ladder MSM, the vector ops, and the Whisk
+sort-based engines, the segmented ladder MSM, the vector ops, the Whisk
 protocol (one proof on the host backend; batched verification, its tracker
-decode and lockstep batch proving on the card).
+decode and lockstep batch proving on the card), and the sharded MSMs of
+`parallel/` in a world of one process and of four sharing the card.
 
     python3 chip_smoke.py            # needs one CUDA device; exits 0 on success
 
@@ -70,6 +71,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
              128-lane segmented MSMs, merged scales and folds): byte for byte
              the thread prover's; ladder_glv_w3, ladder_w3 and point_op
              launched; both walls
+  sharded_world1  the sharded MSM (parallel/) in a world of one process,
+             NCCL on the card (a file:// rendezvous in a temporary
+             directory): msm_sharded_stream at n = 2^16 (the sel path),
+             msm_sharded_ladder at 2^14 - 1 and msm_sharded at 4,096, each
+             against the discrete-log oracle (the stream engine also against
+             msm()); then REPS walls of each in turns with msm() on the same
+             inputs (median, min, max) and the sharded spans (pack, host prep,
+             device, collective, combine): the overhead at devices = 1;
+             scan_sel, gather_u32, point_op and the GLV ladder launched
+  sharded_ranks4  gather_u32 and scan_sel at one rank's shapes (2^15 GLV
+             lanes, its first window chunk) against their plain versions;
+             then four processes spawned on the one card, joined over gloo
+             (NCCL refuses two ranks on one card): the same three calls, every
+             rank's results equal to each other and to the oracle, the sel
+             path on every rank, then dryrun_multichip(4) with its (2, 2)
+             dp x sp layout; each rank's walls of the stream call (four ranks
+             sharing one card: not a scaling number); launches summed over
+             the ranks
   kernel_times  each kernel at the shapes the phases above give it vs its
              plain version (equality), timed with CUDA events, beside the
              least time the card could take; scan_sel at every split (the
@@ -93,9 +112,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              4,096, 6,144, 8,192, 12,288 and 16,383 lanes, at every group the
              same way.
              Launch counts are those of
-             the main-path phases above (the eight MSM and vector phases and
-             the three Whisk phases with kernels): set to 0 just before each,
-             read just after it
+             the main-path phases above (the eight MSM and vector phases, the
+             three Whisk phases with kernels and the two sharded phases): set
+             to 0 just before each, read just after it
   group_ab   the groups the wrappers pick against one thread a lane, in
              turns: msm() at 2^16 (device span, wall), the vector ops'
              scalar_mul at both widths (device ms) and scale_points (wall),
@@ -107,7 +126,9 @@ card's name and power limit. `--rehearse-cpu` walks the same control flow at
 a tiny size on the CPU with the plain versions, to find faults without a
 card (the Whisk phases at ell = 4 and K = 4, with DEVICE_MIN and
 DECOMPRESS_DEVICE_MIN lowered so the merged MSMs and the decode take the
-tensor code); it prints no result and exits 2. `--product-variants` adds a phase
+tensor code; both sharded worlds over gloo, the four ranks' selection
+lowered so their 32 points a rank take the sel path); it prints no result
+and exits 2. `--product-variants` adds a phase
 after kernel_times: the sources built once per entry of PRODUCT_VARIANTS
 (the field arithmetic on carry chains, the default; the arithmetic before
 it, cios64; by reference; inlined; each scan with the other's register
@@ -129,6 +150,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -152,6 +174,9 @@ from curdleproofs_tpu_torch.ops import scan as oscan
 from curdleproofs_tpu_torch.ops import stream_scan as ostream
 from curdleproofs_tpu_torch.ops import vector as ovec
 from curdleproofs_tpu_torch.ops.fieldspec import FQ_SPEC, from_reference, ints_to_limbs
+from curdleproofs_tpu_torch.parallel import distributed, make_mesh, msm_sharded, msm_sharded_ladder, msm_sharded_stream
+from curdleproofs_tpu_torch.parallel.dryrun import dryrun_multichip
+from curdleproofs_tpu_torch.parallel.msm import _local_width
 from curdleproofs_tpu_torch.utils import host_native
 from curdleproofs_tpu_torch.utils.profiling import metrics
 from curdleproofs_tpu_torch.utils.rng import ProofRng
@@ -177,7 +202,9 @@ T_START = time.perf_counter()
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    # one write a line: the ranks of sharded_ranks4 print beside each other
+    sys.stdout.write(json.dumps(obj) + "\n")
+    sys.stdout.flush()
 
 
 def timed_phase(name, fn, *args):
@@ -1269,6 +1296,207 @@ def phase_whisk_lockstep_prove(crs, pres, dev, seed, proofs, device_min):
 
 
 # ---------------------------------------------------------------------------
+# phases: the sharded MSM (parallel/) in a world of one and of four ranks
+# ---------------------------------------------------------------------------
+
+SHARDED_SPANS = ("pack", "host_prep", "device", "collective", "combine")
+
+
+def _sharded_calls(bases, scalars, n_ladder, n_sort, mesh):
+    """The three sharded entry points at the smoke's sizes: the stream engine
+    at the main path's n, the ladder at the ladder branch's widest n, the
+    sort engine at n_sort; the stream call's spans read apart, to show which
+    path it took."""
+    metrics().reset()
+    stream = msm_sharded_stream(bases, scalars, mesh=mesh)
+    spans = {k: v["calls"] for k, v in metrics().report().items() if k.startswith("msm.sharded")}
+    ladder = msm_sharded_ladder(bases[:n_ladder], scalars[:n_ladder], mesh=mesh)
+    sort = msm_sharded(bases[:n_sort], scalars[:n_sort], mesh=mesh)
+    return {"stream": stream, "ladder": ladder, "sort": sort}, spans
+
+
+def _sel_engaged(spans) -> bool:
+    return spans.get("msm.sharded.sel", 0) >= 1 and not spans.get("msm.sharded.plain")
+
+
+def _sharded_rank(bases, scalars, n_ladder, n_sort, device, knobs, reps):
+    """One rank of sharded_ranks4 (spawned): the three sharded entry points,
+    counted, then dryrun_multichip over the world, then `reps` walls of the
+    stream call, every rank starting each together (a barrier)."""
+    import torch.distributed as dist
+
+    omsm.SEL_MIN_N, ostream._LANES = knobs  # as the parent set them for its sizes
+    mesh = make_mesh(device=device)
+    cuda_g1.reset_launch_counts()
+    results, spans = _sharded_calls(bases, scalars, n_ladder, n_sort, mesh)
+    emit({"phase": "sharded_ranks4.rank", "rank": mesh.coords["shard"], "sel_path": _sel_engaged(spans)})
+    dryrun_multichip(mesh.shape["shard"], device=device)
+    launches = dict(cuda_g1.launch_counts)
+    metrics().reset()
+    walls = []
+    for _ in range(reps):
+        dist.barrier()
+        t0 = time.perf_counter()
+        msm_sharded_stream(bases, scalars, mesh=mesh)
+        walls.append(time.perf_counter() - t0)
+    rep = metrics().report()
+    return {
+        "rank": mesh.coords["shard"], "results": results, "stream_spans": spans, "launches": launches,
+        "walls": walls, "span_s": {k: _span_s(rep, f"msm.sharded.{k}", reps) for k in SHARDED_SPANS},
+    }
+
+
+def _turns(plain_fn, sharded_fn, want, reps):
+    """reps walls of msm() and of its sharded counterpart, in turns after one
+    warm-up each; both checked every call. Returns (plain walls, sharded
+    walls, sharded spans' mean seconds, msm()'s spans, all equal)."""
+    ok = plain_fn() == want and sharded_fn() == want
+    metrics().reset()
+    walls = {"msm": [], "sharded": []}
+    for _ in range(reps):
+        for key, fn in (("msm", plain_fn), ("sharded", sharded_fn)):
+            t0 = time.perf_counter()
+            ok = fn() == want and ok
+            walls[key].append(time.perf_counter() - t0)
+    rep = metrics().report()
+    spans = {k: _span_s(rep, f"msm.sharded.{k}", reps) for k in SHARDED_SPANS}
+    msm_spans = {k[4:]: v["total_time_s"] / reps for k, v in rep.items()
+                 if k.startswith("msm.") and not k.startswith("msm.sharded") and v["calls"] >= reps}
+    return walls, spans, msm_spans, ok
+
+
+def phase_sharded_world1(bases, scalars, coef, dev, n_ladder, n_sort):
+    """A world of one process, NCCL on the card (gloo in the CPU rehearsal),
+    rendezvous by a file in a temporary directory: the three sharded entry
+    points against the discrete-log oracle (the stream engine also against
+    msm()), then REPS walls of each in turns with msm() on the same inputs
+    (the ladder against msm()'s ladder branch, the sort engine against
+    msm(method="pippenger")), with the sharded spans: the overhead of the
+    sharded path at devices = 1."""
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory(prefix="curdle-world1-") as tmp:
+        distributed.initialize(f"file://{os.path.join(tmp, 'store')}", 1, 0, backend=backend, device=dev)
+        try:
+            mesh = make_mesh(device=dev)
+            cuda_g1.reset_launch_counts()
+            results, spans = _sharded_calls(bases, scalars, n_ladder, n_sort, mesh)
+            launches = _counts()
+            want = {"stream": dlog_expect(coef, scalars), "ladder": dlog_expect(coef, scalars[:n_ladder]),
+                    "sort": dlog_expect(coef, scalars[:n_sort])}
+            checks = {k: results[k] == want[k] for k in want}
+            checks["stream_equals_msm"] = results["stream"] == msm(bases, scalars, device=dev)
+            timing = {}
+            for name, n, plain, sharded in (
+                ("stream", len(bases), lambda: msm(bases, scalars, device=dev),
+                 lambda: msm_sharded_stream(bases, scalars, mesh=mesh)),
+                ("ladder", n_ladder, lambda: msm(bases[:n_ladder], scalars[:n_ladder], device=dev),
+                 lambda: msm_sharded_ladder(bases[:n_ladder], scalars[:n_ladder], mesh=mesh)),
+                ("sort", n_sort, lambda: msm(bases[:n_sort], scalars[:n_sort], method="pippenger", device=dev),
+                 lambda: msm_sharded(bases[:n_sort], scalars[:n_sort], mesh=mesh)),
+            ):
+                walls, sp, msm_sp, ok = _turns(plain, sharded, want[name], REPS)
+                checks[f"{name}_timed"] = ok
+                timing[name] = {
+                    "n": n, "msm_wall_s": _wall_stats(walls["msm"]), "sharded_wall_s": _wall_stats(walls["sharded"]),
+                    "sharded_spans_s": sp, "msm_spans_s": msm_sp,
+                }
+            backend_used = torch.distributed.get_backend()
+        finally:
+            distributed.shutdown()
+    emit(
+        {
+            "phase": "sharded_world1", "backend": backend_used, "world": 1, "n": len(bases), "c": omsm.pick_window(len(bases)),
+            "checks": checks, "sel_path": _sel_engaged(spans), "stream_spans": spans,
+            "launches": {k: v for k, v in launches.items() if v}, "reps": REPS, "timing": timing,
+        }
+    )
+    if not all(checks.values()):
+        fail(f"sharded_world1: results wrong: {checks}")
+    if not _sel_engaged(spans):
+        fail(f"sharded_world1: the stream engine did not take the sel path: {spans}")
+    if dev.type == "cuda":
+        missing = [k for k in ("scan_sel", "gather_u32", "point_op", f"ladder_glv_w{cuda_g1.GLV_W}") if not launches[k]]
+        if missing:
+            fail(f"sharded_world1: {missing} never launched")
+    return launches
+
+
+def rank_shape_checks(bases, scalars, dev, D: int) -> dict:
+    """gather_u32 and scan_sel at the shapes one rank of a world of D gives
+    them on the sharded stream engine's sel path (rank 0's block, its first
+    window chunk, the prep the engine runs), each against its plain version
+    on the same inputs, exact. Run in this process: these launches count
+    for no path."""
+    n = len(bases)
+    local = _local_width(n, D, 32)
+    n2 = 2 * local
+    L = ostream.pick_lanes(n2)
+    T = n2 // L
+    sc = np.asarray(ints_to_limbs([s.v for s in scalars[:local]], 16), dtype=np.uint32)
+    neg1, order_cm, _, _, sel, _, S = omsm.stream_prep(sc, omsm.pick_window(n), L, glv_split=True, want_sel=True)
+    if sel is None:
+        fail("rank_shape_checks: rank 0's block overflows every selection slot option")
+    ap = og.pack_points(list(bases[:local]), dev)
+    packed = omsm._glv_stream_packed(ap.x, ap.y, ap.inf, from_reference(neg1, dev)).contiguous()
+    wb = max(1, min(order_cm.shape[0], (1 << 22) // n2))
+    idx = from_reference(order_cm[:wb], dev)
+    g = ogather.gather_u32_shared(packed, idx)
+    g_err = max_abs_err(g, ogather.gather_u32_ref(packed[:, None].expand(-1, wb, -1), idx))
+    rec = g.reshape(49, wb * T * L)
+    sel_d = from_reference(sel[: wb * T], dev)
+    got = ostream.scan_records_sel(rec, sel_d, wb, T, L, S)
+    want = ostream.scan_records_sel_ref(rec, sel_d, wb, T, L, S)
+    return {
+        "local": local, "lanes": n2, "W": wb, "T": T, "L": L, "S": S,
+        "gather_u32_max_abs_err": g_err, "scan_sel_max_abs_err": max_abs_err(list(got), list(want)),
+    }
+
+
+def phase_sharded_ranks4(bases, scalars, coef, dev, n_ladder, n_sort, knobs):
+    """Four processes spawned on the one card (each `device=dev`), joined
+    over gloo (NCCL refuses two ranks on one card): the three sharded entry
+    points, every rank's results equal to each other and to the oracle,
+    the sel path on every rank, then dryrun_multichip(4) (its (2, 2) dp x
+    sp layout included), and each rank's walls of the stream call. The walls
+    are four ranks sharing one card: not a scaling number. Before the world
+    starts, gather_u32 and scan_sel are held against their plain versions at
+    one rank's shapes (rank_shape_checks)."""
+    shapes = rank_shape_checks(bases, scalars, dev, 4)
+    rank_dev = str(distributed.local_device(dev))  # "cuda:0" on the card: every rank on the one card
+    ranks = distributed.spawn(
+        _sharded_rank, 4, args=(bases, scalars, n_ladder, n_sort, rank_dev, knobs, REPS),
+        backend="gloo", device=rank_dev, timeout=900,
+    )
+    want = {"stream": dlog_expect(coef, scalars), "ladder": dlog_expect(coef, scalars[:n_ladder]),
+            "sort": dlog_expect(coef, scalars[:n_sort])}
+    checks = {k: all(r["results"][k] == want[k] for r in ranks) for k in want}
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in cuda_g1.KERNEL_NAMES}
+    sel = [_sel_engaged(r["stream_spans"]) for r in ranks]
+    emit(
+        {
+            "phase": "sharded_ranks4", "backend": "gloo", "world": 4, "device_each_rank": rank_dev, "n": len(bases),
+            "checks": checks, "dryrun_multichip_4": "passed on every rank", "sel_path_by_rank": sel,
+            "rank_shape_kernels": shapes,
+            "launches": {k: v for k, v in launches.items() if v},
+            "walls_note": "four ranks sharing one card: not a scaling number",
+            "stream_wall_s_by_rank": [_wall_stats(r["walls"]) for r in ranks],
+            "stream_spans_s_by_rank": [r["span_s"] for r in ranks],
+        }
+    )
+    if not all(checks.values()):
+        fail(f"sharded_ranks4: results wrong: {checks}")
+    if shapes["gather_u32_max_abs_err"] or shapes["scan_sel_max_abs_err"]:
+        fail(f"sharded_ranks4: kernels disagree with their plain versions at a rank's shapes: {shapes}")
+    if not all(sel):
+        fail(f"sharded_ranks4: the stream engine did not take the sel path on every rank: {sel}")
+    if dev.type == "cuda":
+        missing = [k for k in ("scan_sel", "gather_u32", "point_op", f"ladder_glv_w{cuda_g1.GLV_W}") if not launches[k]]
+        if missing:
+            fail(f"sharded_ranks4: {missing} never launched")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase: each kernel at the main path's shapes, timed, beside its bound
 # ---------------------------------------------------------------------------
 
@@ -2241,6 +2469,9 @@ def main() -> int:
         # merges of 16 lanes and more (4 provers) on the tensor code
         vectors.DEVICE_MIN, hcurve.DECOMPRESS_DEVICE_MIN = 128, 32
         lockstep_min = 16
+        # the spawned ranks' SEL_MIN_N and scan lanes: 32 points a rank
+        # take the sel path there
+        ranks4_knobs = (64, 16)
         REPS = 1
         gpu_line = "cpu rehearsal"
     else:
@@ -2253,6 +2484,7 @@ def main() -> int:
         n_vec_small, n_vec_big, n_sample = 124, 8192, 256
         ell, k_proofs = 124, 64  # the Whisk spec's ell; a batch of 64 shuffles
         lockstep_min = vectors.DEVICE_MIN
+        ranks4_knobs = (omsm.SEL_MIN_N, ostream._LANES)
         gpu_line = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True,
@@ -2326,6 +2558,15 @@ def main() -> int:
     timed_phase("decompress", phase_decompress, pres, proofs, dev)
     by_phase["whisk_lockstep_prove"] = timed_phase(
         "whisk_lockstep_prove", phase_whisk_lockstep_prove, crs, pres, dev, args.seed + 2, proofs, lockstep_min
+    )
+    # the sharded MSM (parallel/): a world of one process on the card (NCCL),
+    # then four processes sharing the card (gloo)
+    by_phase["sharded_world1"] = timed_phase(
+        "sharded_world1", phase_sharded_world1, bases[:n_main], scalars[:n_main], coef, dev, n_ladder, n_sort
+    )
+    by_phase["sharded_ranks4"] = timed_phase(
+        "sharded_ranks4", phase_sharded_ranks4, bases[:n_main], scalars[:n_main], coef, dev, n_ladder, n_sort,
+        ranks4_knobs,
     )
     launches = {k: sum(c[k] for c in by_phase.values()) for k in cuda_g1.KERNEL_NAMES}
 

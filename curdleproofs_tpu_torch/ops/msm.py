@@ -3,8 +3,9 @@ n, the GLV ladder for everything below it, and the two sort-based Pippenger
 engines.
 
 Counterpart of the JAX package's `ops.msm`: `msm()` -> `msm_pippenger_stream`
--> `_msm_stream_impl` -> a per-chunk device body -> `_combine_windows_host`
-from STREAM_MIN lanes up, and `msm()` -> `msm_ladder` (one `ladder_glv`
+-> `_msm_stream_impl` -> `_stream_chunks` (a device body per chunk of
+windows; the sharded engine, parallel.msm, runs the same loop) ->
+`_combine_windows_host` from STREAM_MIN lanes up, and `msm()` -> `msm_ladder` (one `ladder_glv`
 launch, then a tree reduce over the point kernel) below it;
 `msm_ladder_segmented` runs K independent same-width MSMs as one launch;
 `msm_pippenger` (sort on the device) and `msm_pippenger_hostsort` (sort on
@@ -500,6 +501,53 @@ def stream_host_prep(digits: np.ndarray, c: int, L: int):
     return order_cm, bidx, lidx, e
 
 
+def stream_prep(
+    scalars_np: np.ndarray, c: int, L: int, glv_split: bool, want_sel: bool,
+    native: bool = True, span: str = "msm.stream.host_prep", on_order=None,
+):
+    """The streaming engine's host prep, shared by `msm()` and the sharded
+    engine (parallel.msm), so both choose it alike. scalars_np (16, n) limbs;
+    with glv_split the GLV split (the lanes double to 2n), then the digits,
+    the stable counting sort, the boundary tables and, with want_sel, the
+    boundary-selection schedule at the smallest of SEL_SLOT_OPTIONS that
+    fits. The GLV prep is one call into the native library where it is
+    built (and `native`), the numpy chain otherwise; the span `span.native`
+    or `span.numpy` says which ran. on_order(order_cm) is called as soon as
+    the sorted order exists (the route solves overlap the rest).
+
+    Returns (neg1 (n,) bool or None, order_cm (W, lanes) i32, bidx, lidx
+    (W, B-1) i32, sel_all (W*T, S) i32, bpos_all (W, B-1) i32, S), with
+    sel_all and bpos_all None and S 0 when no schedule was asked for or none
+    fits."""
+    if glv_split and native and host_native.available():
+        # ONE native call: GLV split + digits + counting sort + boundary
+        # ranks + column-major relabel + boundary-selection schedule
+        with timed(span + ".native"):
+            out = host_native.msm_prep_batch(scalars_np, c, L, SEL_SLOT_OPTIONS if want_sel else ())
+        if on_order is not None:
+            on_order(out[1])
+        return out
+    with timed(span + ".numpy"):
+        neg1 = None
+        if glv_split:
+            s1, neg1, s2 = oglv.decompose(scalars_np.astype(np.uint64))
+            digits = host_digits(
+                np.concatenate([s1, s2], axis=1).astype(np.uint32), c, bits=130
+            )  # (ceil(130/c), 2n) — |s1| < 2^129 plus one bit of headroom
+        else:
+            digits = host_digits(scalars_np, c)  # (W, n) uint16
+        order_cm, bidx, lidx, e = stream_host_prep(digits, c, L)
+        if on_order is not None:  # before the selection schedule, which the solves overlap
+            on_order(order_cm)
+        if want_sel:
+            T = order_cm.shape[1] // L
+            for S in SEL_SLOT_OPTIONS:
+                sel_all, bpos_all = _build_sel(e, T, S)
+                if sel_all is not None:
+                    return neg1, order_cm, bidx, lidx, sel_all, bpos_all, S
+        return neg1, order_cm, bidx, lidx, None, None, 0
+
+
 def _pow2_at_least(n: int, floor: int) -> int:
     m = floor
     while m < n:
@@ -617,6 +665,55 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.current_stream(dev).synchronize()
 
 
+def _stream_chunks(
+    packed, order_cm, bidx, lidx, sel_all, bpos_all, S: int, T: int, L: int,
+    window_batch: int, route_futs=None,
+):
+    """The device loop of the streaming engine, shared by `msm()` and the
+    sharded engine (parallel.msm): one body a chunk of `window_batch`
+    windows, on the card the packed records (49, n) lie on. The host tables
+    are numpy: order_cm (W, n), bidx and lidx (W, B-1), and, for the scan
+    with in-step boundary selection, sel_all (W*T, S) and bpos_all (W, B-1)
+    (None: the complete, full-prefix scan). route_futs, one future a window
+    of `_solve_route`, puts the records into sorted order with the routed
+    gather; None takes the direct gather. Returns [(total (24,), bsums
+    (24, wb), flags (wb,) or None)] a chunk, the launches still queued."""
+    dev = packed.device
+    W = order_cm.shape[0]
+    pending = []
+    for w0 in range(0, W, window_batch):
+        sl = slice(w0, w0 + window_batch)
+        lidx_d = from_reference(lidx[sl], dev)
+        if route_futs is not None:
+            with timed("msm.stream.route_wait"):
+                parts = [f.result() for f in route_futs[sl]]
+            gather_args = tuple(
+                from_reference(np.concatenate([p[k] for p in parts]), dev) for k in range(3)
+            )
+            sel_body, full_body = _stream_window_partials_routed_sel, _stream_window_partials_routed
+        else:
+            gather_args = (from_reference(order_cm[sl], dev),)
+            sel_body, full_body = _stream_window_partials_sel, _stream_window_partials
+        if sel_all is not None:
+            total, bsums, flags = sel_body(
+                packed,
+                *gather_args,
+                from_reference(sel_all[w0 * T : (w0 + window_batch) * T], dev),
+                from_reference(bpos_all[sl], dev),
+                lidx_d,
+                T,
+                L,
+                S,
+            )
+        else:
+            total, bsums = full_body(
+                packed, *gather_args, from_reference(bidx[sl], dev), lidx_d, T, L
+            )
+            flags = None
+        pending.append((total, bsums, flags))
+    return pending
+
+
 def _msm_stream_impl(
     points: APoints,
     scalars_np: np.ndarray,
@@ -650,10 +747,6 @@ def _msm_stream_impl(
         routed = bool(routed)  # None: the direct gather, at every size
         L = ostream.pick_lanes(n)
         T = n // L
-        neg1 = None
-        sel_all = bpos_all = None
-        S = 0
-        route_futs = None
 
         def submit_solves(order_cm: np.ndarray):
             # one future per window, so solves overlap each other, the rest
@@ -665,34 +758,14 @@ def _msm_stream_impl(
         # In-scan boundary selection: S adapts to the smallest slot option
         # that fits, and the full-prefix path takes over when even the
         # largest overflows. _safe forces the full-prefix path with the
-        # doubling-complete scan — the redo after a flagged collision.
-        want_sel = sel_scan and not _safe
-        if glv_split and not _safe and host_native.available():
-            # ONE native call: GLV split + digits + counting sort + boundary
-            # ranks + column-major relabel + boundary-selection schedule
-            with timed("msm.stream.host_prep.native"):
-                neg1, order_cm, bidx, lidx, sel_all, bpos_all, S = host_native.msm_prep_batch(
-                    scalars_np, c, L, SEL_SLOT_OPTIONS if want_sel else ()
-                )
-            if routed:
-                route_futs = submit_solves(order_cm)
-        else:
-            with timed("msm.stream.host_prep.numpy"):
-                if glv_split:
-                    s1, neg1, s2 = oglv.decompose(scalars_np.astype(np.uint64))
-                    digits = host_digits(
-                        np.concatenate([s1, s2], axis=1).astype(np.uint32), c, bits=130
-                    )  # (ceil(130/c), 2n) — |s1| < 2^129 plus one bit of headroom
-                else:
-                    digits = host_digits(scalars_np, c)  # (W, n) uint16
-                order_cm, bidx, lidx, e = stream_host_prep(digits, c, L)
-                if routed:  # before the selection schedule, which the solves overlap
-                    route_futs = submit_solves(order_cm)
-                if want_sel:
-                    for S in SEL_SLOT_OPTIONS:
-                        sel_all, bpos_all = _build_sel(e, T, S)
-                        if sel_all is not None:
-                            break
+        # doubling-complete scan, on the numpy prep: the redo after a
+        # flagged collision.
+        routes = []
+        neg1, order_cm, bidx, lidx, sel_all, bpos_all, S = stream_prep(
+            scalars_np, c, L, glv_split, sel_scan and not _safe, native=not _safe,
+            on_order=(lambda o: routes.append(submit_solves(o))) if routed else None,
+        )
+        route_futs = routes[0] if routes else None
         W = order_cm.shape[0]
         if window_batch is None:
             # routed: small chunks, so a chunk launches as soon as its solves
@@ -708,37 +781,9 @@ def _msm_stream_impl(
             ).contiguous()
         else:
             packed = _pack_records(points)
-        pending = []  # (total, bsums, flags) device handles, launches stay queued
-        for w0 in range(0, W, window_batch):
-            sl = slice(w0, w0 + window_batch)
-            lidx_d = from_reference(lidx[sl], dev)
-            if routed:
-                with timed("msm.stream.route_wait"):
-                    parts = [f.result() for f in route_futs[sl]]
-                gather_args = tuple(
-                    from_reference(np.concatenate([p[k] for p in parts]), dev) for k in range(3)
-                )
-                sel_body, full_body = _stream_window_partials_routed_sel, _stream_window_partials_routed
-            else:
-                gather_args = (from_reference(order_cm[sl], dev),)
-                sel_body, full_body = _stream_window_partials_sel, _stream_window_partials
-            if sel_all is not None:
-                total, bsums, flags = sel_body(
-                    packed,
-                    *gather_args,
-                    from_reference(sel_all[w0 * T : (w0 + window_batch) * T], dev),
-                    from_reference(bpos_all[sl], dev),
-                    lidx_d,
-                    T,
-                    L,
-                    S,
-                )
-            else:
-                total, bsums = full_body(
-                    packed, *gather_args, from_reference(bidx[sl], dev), lidx_d, T, L
-                )
-                flags = None
-            pending.append((total, bsums, flags))
+        pending = _stream_chunks(
+            packed, order_cm, bidx, lidx, sel_all, bpos_all, S, T, L, window_batch, route_futs
+        )
         # everything rides home in ONE (72, 1+W) tensor, plus the flags
         res = _pack_results(pending[0][0], [b for _, b, _ in pending])
         flags_d = (

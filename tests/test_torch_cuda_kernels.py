@@ -406,3 +406,29 @@ def test_device_decompress_equals_the_host_decoder(card):
     assert ocompress.batch_decompress_to_host(encs, card) == pts
     assert curve.decompress_host_batch(blob, device=card) == pts  # routed to the card at 8,192
     assert curve.decompress_host_batch(blob, check=True) == pts  # the host decoder
+
+
+def test_sharded_stream_in_a_world_of_one_equals_msm(card, tmp_path):
+    """A NCCL world of one process on the card: msm_sharded_stream at n = 2^14
+    (2^15 GLV lanes: the sel path) equals msm(), through scan_sel."""
+    from curdleproofs_tpu_torch import curve, msm
+    from curdleproofs_tpu_torch.parallel import distributed, make_mesh, msm_sharded_stream
+    from curdleproofs_tpu_torch.utils.profiling import metrics
+
+    n = 1 << 14
+    rng = random.Random(21)
+    pts = curve.mul_host_batch([G1()] * n, [Fr(rng.randrange(1, FR_MOD)) for _ in range(n)])
+    scs = [Fr(rng.randrange(FR_MOD)) for _ in range(n)]
+    distributed.initialize(f"file://{tmp_path / 'store'}", 1, 0, backend="nccl", device=card)
+    try:
+        mesh = make_mesh(device=card)
+        cuda_g1.reset_launch_counts()
+        metrics().reset()
+        got = msm_sharded_stream(pts, scs, mesh=mesh)
+        launched = dict(cuda_g1.launch_counts)
+        spans = metrics().report()
+    finally:
+        distributed.shutdown()
+    assert got == msm(pts, scs, device=card)
+    assert launched["scan_sel"] >= 1 and launched["gather_u32"] >= 1 and launched["point_op"] >= 1, launched
+    assert "msm.sharded.sel" in spans and "msm.sharded.plain" not in spans

@@ -46,6 +46,11 @@ print("BAD=" + ",".join(bad))
         "curdleproofs_tpu_torch.utils.serde",
         "curdleproofs_tpu_torch.utils.rng",
         "curdleproofs_tpu_torch.utils.errors",
+        "curdleproofs_tpu_torch.parallel",
+        "curdleproofs_tpu_torch.parallel.distributed",
+        "curdleproofs_tpu_torch.parallel.mesh",
+        "curdleproofs_tpu_torch.parallel.msm",
+        "curdleproofs_tpu_torch.parallel.dryrun",
         "chip_smoke",
     ],
 )

@@ -14,7 +14,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
   device     card name and power limit (nvidia-smi), kernel build time, the
              native host library's build time and OpenMP threads
-  kernels    the nine kernels vs their plain versions at small shapes with
+  kernels    the twelve kernels vs their plain versions at small shapes with
              edge lanes (point_op and the four ladders at every thread group
              G = 1, 2, 4; identity, P+P, P+(-P), a forced p == q collision in
              scan_sel at split 1 and at the default split, the two equal as
@@ -28,7 +28,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              scalars 0, 1, r-1, lambda, lambda+-1, 2^128, 14*lambda, ..., an
              identity base, two equal bases, negative k1, for ladder_w1 also
              r+2 (its last add doubles), all three coordinates and the host's
-             P*s) — integer equality
+             P*s; the three field kernels at 64 lanes: decompress with x = 0
+             of both signs, three x without a root, x = p - 1, compress on
+             its output, glv_records with identity lanes and mixed neg1) —
+             integer equality
   host_native  msm_prep_batch at n = 2^16, c = 13, L = 512 array-equal to the
              numpy chain, and both times
   msm_2e16   msm() at n = 2^16: bases P_i = (a + i*d + i^2*e)*G, uniform scalars;
@@ -64,9 +67,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
              AreValidWhiskShuffleProofs: true, false with a flipped byte; the
              merged MSM's engine and width (the streaming Pippenger), the
              spans (decode, transcript replay, dedup, pack, host prep,
-             device, combine); scan_sel, gather_u32 and point_op launched
+             device, combine); scan_sel, gather_u32, point_op and decompress
+             launched; then the same call with the decode on the plain chain
+             (the decode's spans before and after, in one run)
   decompress the batched verifier's 31,744 tracker points decoded on the
-             card (ops.compress) and by the host C decoder: equal; both times
+             card (ops.compress, one decompress launch) and by the host C
+             decoder: equal; encoded back (batch_compress, one compress
+             launch): the input bytes; both times, the decode's spans (parse,
+             upload, kernel and readback, unpack_points), the kernel by CUDA
+             events, and the kernel path against the host C decoder at
+             1,024, 4,096, 8,192 and 31,744 points in turns, with the size
+             from which the kernel path wins
   whisk_lockstep_prove  the same 64 proofs by the lockstep prover (64 x
              128-lane segmented MSMs, merged scales and folds): byte for byte
              the thread prover's; ladder_glv_w3, ladder_w3 and point_op
@@ -110,16 +121,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
              widths, ladder_w1 at 124, 1,024, 2,048, 3,072, 4,096, 6,144,
              8,192 and 16,383 lanes, and each GLV ladder alone at 124, 1,024,
              4,096, 6,144, 8,192, 12,288 and 16,383 lanes, at every group the
-             same way.
+             same way; decompress at the 31,744 tracker points with the edge
+             lanes added, compress on its output, glv_records at 2^16 points
+             with identity lanes (beside its plain chain in turns); and the
+             guard: the PyTorch ops on CUDA tensors of one
+             `_glv_stream_packed` and one `batch_decompress` call, under a
+             dispatch-mode counter, at most GUARD_MAX_OPS each.
              Launch counts are those of
              the main-path phases above (the eight MSM and vector phases, the
-             three Whisk phases with kernels and the two sharded phases): set
-             to 0 just before each, read just after it
+             three Whisk phases with kernels, the decode and the two sharded
+             phases): set to 0 just before each, read just after it
   group_ab   the groups the wrappers pick against one thread a lane, in
              turns: msm() at 2^16 (device span, wall), the vector ops'
              scalar_mul at both widths (device ms) and scale_points (wall),
              msm() through the GLV ladder at 4,096 and msm_ladder_segmented
              at 64 x 128 (device span, wall)
+  trace_msm  one warm msm() at 2^16 under utils.profiling.device_trace
+             (torch.profiler, a Chrome trace in a temporary directory): the
+             kernels' summed time, the device's busy share of the traced
+             window, launches and ms by name; then msm()'s device span with
+             the GLV records on their kernel and on the plain chain, in turns
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit. `--rehearse-cpu` walks the same control flow at
@@ -138,7 +159,8 @@ machine instructions (and those of one fq_mul and one fq_sqr), and all
 nine kernels (scan_sel also at split 1, point_op also at group 1, the GLV
 ladders also at 8,192 lanes, ladder_w3 alone at both vector widths) timed
 under every build of their source that compiled, at the shapes above,
-three rounds in turns, bit-equal to the loaded build. `--ptxas` prints the
+three rounds in turns, bit-equal to the loaded build (the field kernels
+of field_kernels.cu are not among them). `--ptxas` prints the
 default build's ptxas figures (registers, stack, spills of every template
 instantiation, by readable name) and machine instructions per kernel
 without a card.
@@ -173,12 +195,12 @@ from curdleproofs_tpu_torch.ops import route as oroute
 from curdleproofs_tpu_torch.ops import scan as oscan
 from curdleproofs_tpu_torch.ops import stream_scan as ostream
 from curdleproofs_tpu_torch.ops import vector as ovec
-from curdleproofs_tpu_torch.ops.fieldspec import FQ_SPEC, from_reference, ints_to_limbs
+from curdleproofs_tpu_torch.ops.fieldspec import FQ_SPEC, from_reference, ints_to_limbs, to_reference
 from curdleproofs_tpu_torch.parallel import distributed, make_mesh, msm_sharded, msm_sharded_ladder, msm_sharded_stream
 from curdleproofs_tpu_torch.parallel.dryrun import dryrun_multichip
 from curdleproofs_tpu_torch.parallel.msm import _local_width
 from curdleproofs_tpu_torch.utils import host_native
-from curdleproofs_tpu_torch.utils.profiling import metrics
+from curdleproofs_tpu_torch.utils.profiling import device_trace, metrics, trace_summary
 from curdleproofs_tpu_torch.utils.rng import ProofRng
 
 # Least-time model of the card (NVIDIA H100 SXM data sheet): HBM3 at
@@ -195,10 +217,50 @@ MONT_PER_OP = {"dbl": 7, "madd": 11, "jadd": 16}  # Montgomery products per poin
 KERNELS_CU = "curdleproofs_tpu_torch/csrc/kernels.cu"
 LADDERS_CU = "curdleproofs_tpu_torch/csrc/ladders.cu"
 GATHER_CU = "curdleproofs_tpu_torch/csrc/gather.cu"
+FIELD_CU = "curdleproofs_tpu_torch/csrc/field_kernels.cu"
+# 32-bit multiplies of one Montgomery square over 12 words: the 78 distinct
+# word products of a*a, then the reduction's m*p and m
+MULS_PER_SQR = 12 * 13 // 2 + 12 * 12 + 12
+# the tracker decode against the host C decoder at these widths
+DECODE_SIZES = (1024, 4096, 8192, 31744)
+# PyTorch ops on CUDA tensors that one call of `_glv_stream_packed` or of
+# `batch_decompress` may run: uploads, allocations, views, the readback
+# (the plain chains ran 699 and 383,902)
+GUARD_MAX_OPS = 16
 
 
 PHASE_SECONDS = {}
 T_START = time.perf_counter()
+
+
+def sqrt_chain_cost(max_window: int = 8) -> tuple:
+    """(squares, products) of the cheapest sliding-window chain for the
+    square-root exponent (p + 1) / 4 over windows of 1 to max_window bits,
+    the odd powers it multiplies by counted: the least work of the root."""
+    bits = bin((FQ_MOD + 1) // 4)[2:]
+    best = None
+    for k in range(1, max_window + 1):
+        squares = products = 0
+        i = bits.index("1")
+        j = min(i + k, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        i = j  # the leading window is a table entry
+        while i < len(bits):
+            if bits[i] == "0":
+                squares, i = squares + 1, i + 1
+                continue
+            j = min(i + k, len(bits))
+            while bits[j - 1] == "0":
+                j -= 1
+            squares, products, i = squares + j - i, products + 1, j
+        if k > 1:  # rhs^2, then rhs^3, ..., rhs^(2^k - 1)
+            squares, products = squares + 1, products + 2 ** (k - 1) - 1
+        cost = (squares, products)
+        if best is None or squares * MULS_PER_SQR + products * MULS_PER_MONT < (
+                best[0] * MULS_PER_SQR + best[1] * MULS_PER_MONT):
+            best = cost
+    return best
 
 
 def emit(obj) -> None:
@@ -608,6 +670,7 @@ def phase_kernels(bases, dev, rng, m_ladder, route_shape):
         same_points(a, b) for a, b in zip(by_split[k_main], by_split[1])
     )
     out["ladders"] = lad = ladder_edge_checks(bases, dev, rng, m_ladder)
+    out["field"] = fld = field_edge_checks(bases, dev)
     emit(out)
     bad = [k for k in ("gather_u32", "scan_sel", "scan_sel_split1", "scan_full", "scan_full_split1")
            if not out[k]["equal"]]
@@ -618,6 +681,11 @@ def phase_kernels(bases, dev, rng, m_ladder, route_shape):
                 bad.append(k)
             if dev.type == "cuda" and v["launched"] != 1:
                 fail(f"{k}: the wrapper launched its kernel {v['launched']} times, not once")
+    for k in ("decompress", "compress", "glv_records"):
+        if fld[k]["max_abs_err"] != 0:
+            bad.append(k)
+        if dev.type == "cuda" and fld[k]["launched"] != 1:
+            fail(f"{k}: the wrapper launched its kernel {fld[k]['launched']} times, not once")
     if not 0 < lad["negative_k1_lanes"] < lad["m"]:
         bad.append("ladder lanes lack a negative or a positive k1")
     if not (out["scan_sel"]["collision_flagged"] and out["scan_sel_split1"]["collision_flagged"]):
@@ -762,7 +830,7 @@ def phase_msm_main(bases, scalars, coef, dev, point_widths):
         fail("msm_2e16 result is wrong")
     if _prep_ran(rep) != {"native": REPS}:
         fail(f"msm_2e16 did not run the native host prep: {_prep_ran(rep)}")
-    for k in ("scan_sel", "gather_u32", "point_op"):
+    for k in ("scan_sel", "gather_u32", "point_op", "glv_records"):
         if dev.type == "cuda" and launches_one[k] == 0:
             fail(f"msm_2e16 never launched {k}")
     if dev.type == "cuda" and sum(point_widths["msm"].values()) != launches_one["point_op"]:
@@ -1204,21 +1272,34 @@ def phase_whisk_batch_verify(crs, pres, dev, seed, proofs):
     rejected, bad_ms = wall_ms(
         lambda: not P.AreValidWhiskShuffleProofs(crs, [(pre0, post0, bytes(bad))] + instances[1:], device=dev), dev
     )
-    spans = _spans(rep, ("whisk.batch.decode", "whisk.batch.replay", "msm_accumulator.dedup", "vectors.pack",
-                         f"msm.{engine}", f"msm.{engine}.host_prep", f"msm.{engine}.device", f"msm.{engine}.combine"))
+    decode_spans = ("whisk.batch.decode", "decompress.parse", "decompress.upload", "decompress.device",
+                    "decompress.unpack")
+    spans = _spans(rep, decode_spans + ("whisk.batch.replay", "msm_accumulator.dedup", "vectors.pack",
+                                        f"msm.{engine}", f"msm.{engine}.host_prep", f"msm.{engine}.device",
+                                        f"msm.{engine}.combine"))
+    # once more with the decode on the plain chain (the port before its
+    # kernel, on the same device): the decode before and after in one run
+    metrics().reset()
+    kernel_path = ocompress._decompress_device
+    ocompress._decompress_device = ocompress._decompress_plain
+    try:
+        ok_plain, plain_ms = wall_ms(lambda: P.AreValidWhiskShuffleProofs(crs, instances, device=dev), dev)
+    finally:
+        ocompress._decompress_device = kernel_path
+    plain_chain = {"valid": ok_plain, "wall_s": plain_ms / 1e3, "spans_s": _spans(metrics().report(), decode_spans)}
     emit(
         {
             "phase": "whisk_batch_verify", "K": len(pres), "ell": crs.ell, "thread_prove_s": prove_ms / 1e3,
             "valid": ok, "flipped_byte_rejected": rejected, "wall_s": ms / 1e3, "wall_s_flipped": bad_ms / 1e3,
             "merged_msm": {"engine": engine, "bases": width, "msm_calls": rep.get(f"msm.{engine}", {}).get("calls")},
             "decoded_points": rep.get("whisk.batch.decode", {}).get("total_items", 0),
-            "spans_s": spans, "launches": launches,
+            "spans_s": spans, "launches": launches, "decode_on_the_plain_chain": plain_chain,
         }
     )
-    if not (ok and rejected):
-        fail(f"whisk_batch_verify: valid {ok}, flipped byte rejected {rejected}")
+    if not (ok and rejected and ok_plain):
+        fail(f"whisk_batch_verify: valid {ok} (plain chain {ok_plain}), flipped byte rejected {rejected}")
     if dev.type == "cuda":
-        missing = [k for k in ("scan_sel", "gather_u32", "point_op") if not launches[k]]
+        missing = [k for k in ("scan_sel", "gather_u32", "point_op", "decompress") if not launches[k]]
         if missing or engine != "stream":
             fail(f"whisk_batch_verify: the merged MSM ran on {engine}, {missing} never launched")
     return launches
@@ -1226,33 +1307,122 @@ def phase_whisk_batch_verify(crs, pres, dev, seed, proofs):
 
 def phase_decompress(pres, proofs, dev):
     """The batched verifier's tracker batch (pre and post columns of every
-    instance, 4*ell*K points) decoded on the card (ops.compress) and by the
-    host C decoder (csrc/g1_host.c, across host threads): the same points."""
+    instance, 4*ell*K points) through the port's entry points: decoded on
+    the card (ops.compress: `decompress` launches) and encoded back
+    (`batch_compress`: one `compress` launch), the bytes equal to the input,
+    the points equal to the host C decoder's (csrc/g1_host.c, across host
+    threads). Then, outside the counted run, the decode's parts (the
+    host parse, the upload, the kernel by CUDA events, the readback and
+    unpack_points), and the kernel path against the host C decoder at
+    DECODE_SIZES points, three walls each in turns (medians), and where
+    they cross."""
     blob = b"".join(
         b"".join(t.r_G for t in pre) + b"".join(t.k_r_G for t in pre)
         + b"".join(t.r_G for t in post) + b"".join(t.k_r_G for t in post)
         for pre, (post, _) in zip(pres, proofs["thread"])
     )
     encs = [blob[48 * i : 48 * i + 48] for i in range(len(blob) // 48)]
-    ocompress.batch_decompress_to_host(encs[:64], dev)  # warm-up
+    cuda_g1.reset_launch_counts()
+    metrics().reset()
     dev_pts, dev_ms = wall_ms(lambda: ocompress.batch_decompress_to_host(encs, dev), dev)
-    (ap, _), chain_ms = wall_ms(lambda: ocompress.batch_decompress(encs, dev), dev)
-    route = hcurve.DECOMPRESS_DEVICE_MIN
-    hcurve.DECOMPRESS_DEVICE_MIN = len(encs) + 1  # the host backend
-    try:
-        host_pts, host_ms = wall_ms(lambda: hcurve.decompress_host_batch(blob), dev)
-    finally:
-        hcurve.DECOMPRESS_DEVICE_MIN = route
+    rep = metrics().report()
+    ap, _ = ocompress.batch_decompress(encs, dev)
+    round_trip = ocompress.batch_compress(ap) == encs
+    launches = _counts()
+
+    def host_decode(data):
+        route = hcurve.DECOMPRESS_DEVICE_MIN
+        hcurve.DECOMPRESS_DEVICE_MIN = len(data) // 48 + 1  # the host backend
+        try:
+            return hcurve.decompress_host_batch(data)
+        finally:
+            hcurve.DECOMPRESS_DEVICE_MIN = route
+
+    host_pts, host_ms = wall_ms(lambda: host_decode(blob), dev)
     equal = dev_pts == host_pts
+    x, signs, _ = ocompress.parse_encodings(encs)
+    x_d, s_d = from_reference(x, dev), from_reference(signs, dev)
+    kernel_ms = cuda_ms(lambda: ocompress._decompress_device(x_d, s_d), 5) if dev.type == "cuda" else None
+    sizes = [k for k in DECODE_SIZES if k <= len(encs)] or [len(encs)]
+    crossing = {}
+    for k in sizes:
+        walls = in_turns({"kernel_path": lambda k=k: ocompress.batch_decompress_to_host(encs[:k], dev),
+                          "host_c": lambda k=k: host_decode(blob[: 48 * k])},
+                         REPS, lambda fn: wall_ms(fn, dev)[1] / 1e3)
+        crossing[str(k)] = {key: float(np.median(v)) for key, v in walls.items()}
+        crossing[str(k)]["kernel_path_wins"] = crossing[str(k)]["kernel_path"] < crossing[str(k)]["host_c"]
     emit(
         {
-            "phase": "decompress", "points": len(encs), "equal": equal, "device_s": dev_ms / 1e3,
-            "device_chain_s": chain_ms / 1e3, "host_c_s": host_ms / 1e3,
-            "host_threads": min(8, os.cpu_count() or 1),
+            "phase": "decompress", "points": len(encs), "equal": equal, "round_trip_bytes_equal": round_trip,
+            "device_s": dev_ms / 1e3, "host_c_s": host_ms / 1e3, "host_threads": min(8, os.cpu_count() or 1),
+            "spans_s": _spans(rep, ("decompress.parse", "decompress.upload", "decompress.device",
+                                    "decompress.unpack")),
+            "kernel_ms": kernel_ms, "launches": launches, "kernel_path_vs_host_c_s": crossing,
+            "kernel_path_wins_from": next(
+                (k for k in sizes if all(crossing[str(j)]["kernel_path_wins"] for j in sizes if j >= k)), None),
         }
     )
-    if not equal:
-        fail("decompress: the card's decode disagrees with the host C decoder")
+    if not (equal and round_trip):
+        fail(f"decompress: the card's decode equals the host C decoder's {equal}, round trip {round_trip}")
+    if dev.type == "cuda" and not (launches["decompress"] and launches["compress"]):
+        fail(f"decompress: the decode or the encode never launched its kernel: {launches}")
+    return launches, encs
+
+
+def field_edge_lanes():
+    """x limbs and sign flags of the decode's edge lanes: x = 0 (the lanes
+    that carry infinity) with both signs, three x with no root, x = p - 1
+    with both signs, and a point with both signs."""
+    nonres, x = [], 1
+    while len(nonres) < 3:
+        if hcurve.fq_sqrt((x**3 + 4) % FQ_MOD) is None:
+            nonres.append(x)
+        x += 1
+    g = G1() * Fr(7)
+    xs = [0, 0] + nonres + [FQ_MOD - 1, FQ_MOD - 1, g.x, g.x]
+    signs = np.array([False, True, False, True, False, False, True, False, True], dtype=bool)
+    return ints_to_limbs(xs, 24), signs
+
+
+def with_identity_lanes(ap, lanes):
+    """Affine points with the given lanes set to the identity (zero
+    coordinates, inf set), as pack_points writes it."""
+    x, y, inf = ap.x.clone(), ap.y.clone(), ap.inf.clone()
+    x[:, lanes] = 0
+    y[:, lanes] = 0
+    inf[lanes] = True
+    return og.APoints(x, y, inf)
+
+
+def field_edge_checks(bases, dev, m: int = 64) -> dict:
+    """The three field kernels at m lanes against their plain versions:
+    decompress on the edge lanes and m curve points of both signs, compress
+    on its output, glv_records on m points with identity lanes and mixed
+    neg1; each launched once."""
+    pts = list(bases[:m])
+    x_e, s_e = field_edge_lanes()
+    x = np.concatenate([ints_to_limbs([p.x for p in pts], 24), x_e], axis=1)
+    signs = np.concatenate([np.arange(m) % 3 == 0, s_e])
+    x_d, s_d = from_reference(x, dev), from_reference(signs, dev)
+    # lane 1 is both the identity and negated: fq_neg(0) must store 0
+    ap = with_identity_lanes(og.pack_points(pts, dev), [0, 1, m // 2])
+    neg1 = from_reference(np.arange(m) % 2 == 1, dev)
+    before = _counts()
+    got = ocompress._decompress_device(x_d, s_d)
+    want = ocompress._decompress_plain(x_d, s_d)
+    dec = og.APoints(got[0], got[1], torch.zeros(x.shape[1], dtype=torch.bool, device=dev))
+    got_c = ocompress._compress_device(dec)
+    got_r = omsm._glv_stream_packed(ap.x, ap.y, ap.inf, neg1)
+    launched = _delta(before)
+    out = {
+        "decompress": max_abs_err(list(got), list(want)),
+        "compress": max_abs_err(list(got_c), list(ocompress._compress_plain(dec))),
+        "glv_records": max_abs_err(got_r, omsm._glv_stream_packed_plain(ap.x, ap.y, ap.inf, neg1)),
+    }
+    return {k: {"max_abs_err": v, "launched": launched[k]} for k, v in out.items()} | {
+        "lanes": {"decompress": x.shape[1], "glv_records": m},
+        "ok_lanes": int(to_reference(got[2]).sum()),
+    }
 
 
 def phase_whisk_lockstep_prove(crs, pres, dev, seed, proofs, device_min):
@@ -1716,8 +1886,103 @@ def glv_group_sweep(ap, halves, w, dev, timer, widths, want):
     return out
 
 
+def in_turns(calls, rounds: int, timer) -> dict:
+    """timer(call) of each call, `rounds` rounds in turns (the order reversed
+    every other round): name -> the rounds' readings."""
+    out = {k: [] for k in calls}
+    for r in range(rounds):
+        for k in list(calls) if r % 2 == 0 else reversed(list(calls)):
+            out[k].append(timer(calls[k]))
+    return out
+
+
+def count_cuda_ops(calls) -> dict:
+    """The PyTorch ops each call runs that touch a CUDA tensor (argument or
+    result), counted under a dispatch mode, by op."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class Counter(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.by_op = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(isinstance(t, torch.Tensor) and t.is_cuda for t in tree_flatten((args, kwargs, out))[0]):
+                self.by_op[str(func)] = self.by_op.get(str(func), 0) + 1
+            return out
+
+    res = {}
+    for name, fn in calls.items():
+        with Counter() as counter:
+            fn()
+        res[name] = {"ops": sum(counter.by_op.values()), "by_op": counter.by_op}
+    return res
+
+
+def short_names(by_name, width: int = 100) -> dict:
+    """A trace's launches and ms by kernel name, the names cut to `width`
+    characters (entries that then share a name are summed)."""
+    out = {}
+    for k, v in by_name.items():
+        e = out.setdefault(k[:width], {"launches": 0, "ms": 0.0})
+        e["launches"] += v["launches"]
+        e["ms"] += v["ms"]
+    return out
+
+
+def phase_trace_msm(bases, scalars, coef, dev):
+    """One warm msm() at n = 2^16 under `utils.profiling.device_trace`: from
+    the trace, the kernels' summed time (all, and the package's own), the
+    device's busy share of the call's wall and the launches by name. Then
+    msm()'s device span with the GLV records on their kernel and on the
+    plain chain, REPS calls each in turns (medians)."""
+    want = dlog_expect(coef, scalars)
+    msm(bases, scalars, device=dev)  # warm
+    with tempfile.TemporaryDirectory() as logdir:
+        with device_trace(logdir) as prof:
+            got, wall = wall_ms(lambda: msm(bases, scalars, device=dev), dev)
+        trace_bytes = sum(os.path.getsize(os.path.join(logdir, f)) for f in os.listdir(logdir))
+    summary = trace_summary(prof, wall / 1e3)
+    copies = ("Memcpy", "Memset")
+    kernels = {k: v for k, v in summary["by_name"].items() if not k.startswith(copies)}
+    ours = {k: v for k, v in kernels.items() if k.startswith(("curdle::", "void curdle::"))}
+    kernel_fn, checks = omsm._glv_stream_packed, [got == want]
+
+    def device_span(records_fn):
+        omsm._glv_stream_packed = records_fn
+        try:
+            metrics().reset()
+            checks.append(msm(bases, scalars, device=dev) == want)
+            return metrics().report()["msm.stream.device"]["total_time_s"]
+        finally:
+            omsm._glv_stream_packed = kernel_fn
+
+    spans = in_turns({"kernel": lambda: device_span(kernel_fn),
+                      "plain": lambda: device_span(omsm._glv_stream_packed_plain)}, REPS, lambda fn: fn())
+    ok = all(checks)
+    emit(
+        {
+            "phase": "trace_msm", "n": len(bases), "dlog_check": ok, "trace_bytes": trace_bytes,
+            "kernel_ms": sum(v["ms"] for v in kernels.values()),
+            "kernel_launches": sum(v["launches"] for v in kernels.values()),
+            "port_kernel_ms": sum(v["ms"] for v in ours.values()),
+            "port_kernel_launches": sum(v["launches"] for v in ours.values()),
+            "device_ms": summary["device_ms"], "busy_ms": summary["busy_ms"], "window_ms": summary["window_ms"],
+            "busy_share": summary["busy_share"],
+            "by_name": short_names(summary["by_name"]),
+            "device_span_s": {k: {"median": float(np.median(v)), "all": v} for k, v in spans.items()},
+        }
+    )
+    if not ok:
+        fail("trace_msm: msm() is wrong")
+    if dev.type == "cuda" and not ours:
+        fail("trace_msm: the trace holds no kernel of the package on the card")
+
+
 def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_vec_small, coef, point_widths,
-                       variants=False):
+                       decode_encs, variants=False):
     """Rebuild the tensors the main paths hand each kernel (same host prep,
     same records) and compare kernel and plain version on them."""
     n = len(bases)
@@ -2104,14 +2369,80 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_
         for w in (3, 4):
             variant_cases[f"ladder_glv_w{w}_{k}"] = (
                 lambda w=w: tuple(cuda_g1.scalar_mul_glv(*args_k, w=w)), 3, "ladders.cu")
+    # the three field kernels: decompress at the batched verifier's tracker
+    # batch with the edge lanes added, compress on its output, glv_records at
+    # n points with identity lanes and the main path's mixed neg1 (the
+    # plain chain and the kernel also in turns)
+    x_t, s_t, _ = ocompress.parse_encodings(decode_encs)
+    x_e, s_e = field_edge_lanes()
+    x_dec = from_reference(np.concatenate([x_t, x_e], axis=1), dev)
+    s_dec = from_reference(np.concatenate([s_t, s_e]), dev)
+    m_dec = x_dec.shape[1]
+    # the least work a lane: the cheapest sliding-window root, then to_mont,
+    # x^2, x^3, y^2 and from_mont
+    dec_squares, dec_products = sqrt_chain_cost()
+    dec_squares, dec_products = dec_squares + 2, dec_products + 3
+    dec = row(
+        "decompress",
+        "curdleproofs_tpu/ops/compress.py:33",
+        lambda: ocompress._decompress_device(x_dec, s_dec),
+        lambda: ocompress._decompress_plain(x_dec, s_dec),
+        ops=m_dec * (dec_squares * MULS_PER_SQR + dec_products * MULS_PER_MONT),
+        nbytes=m_dec * (4 * 24 + 1 + 4 * 48 + 1),
+        source=FIELD_CU,
+        shape={"lanes": m_dec, "tracker_points": x_t.shape[1], "edge_lanes": x_e.shape[1],
+               "montgomery_squares_a_lane": dec_squares, "montgomery_products_a_lane": dec_products},
+    )
+    dec_pts = og.APoints(dec[0], dec[1], torch.zeros(m_dec, dtype=torch.bool, device=dev))
+    row(
+        "compress",
+        "curdleproofs_tpu/ops/compress.py:101",
+        lambda: ocompress._compress_device(dec_pts),
+        lambda: ocompress._compress_plain(dec_pts),
+        ops=m_dec * 2 * MULS_PER_MONT,
+        nbytes=m_dec * (4 * 48 + 4 * 24 + 1),
+        source=FIELD_CU,
+        shape={"lanes": m_dec},
+    )
+    rec_pts = with_identity_lanes(pts, [0, 1, n // 2, n - 1])
+    rec_args = (rec_pts.x, rec_pts.y, rec_pts.inf, from_reference(neg1, dev))
+    row(
+        "glv_records",
+        "curdleproofs_tpu/ops/msm.py:384",
+        lambda: omsm._glv_stream_packed(*rec_args),
+        lambda: omsm._glv_stream_packed_plain(*rec_args),
+        ops=n * MULS_PER_MONT,
+        nbytes=n * (4 * 48 + 2 + 4 * 2 * 49),
+        source=FIELD_CU,
+        shape={"points": n, "identity_lanes": 4, "neg1_lanes": int(neg1.sum())},
+    )
+    if dev.type == "cuda":
+        # both launches are shorter than their wrappers' Python: device time
+        # by CUDA graph beside the events' ms
+        rows[-2]["graph_ms"] = graph_ms(lambda: ocompress._compress_device(dec_pts), 20)
+        rows[-1]["graph_ms"] = graph_ms(lambda: omsm._glv_stream_packed(*rec_args), 20)
+        rows[-1]["kernel_and_plain_in_turns_ms"] = in_turns(
+            {"kernel": lambda: omsm._glv_stream_packed(*rec_args),
+             "plain": lambda: omsm._glv_stream_packed_plain(*rec_args)}, REPS, lambda fn: cuda_ms(fn, 3))
+    # the guard: PyTorch ops on CUDA tensors of one call of each entry
+    guard = count_cuda_ops({
+        "_glv_stream_packed": lambda: omsm._glv_stream_packed(pts.x, pts.y, pts.inf, from_reference(neg1, dev)),
+        "batch_decompress": lambda: ocompress.batch_decompress(decode_encs, dev),
+    })
     emit(
         {
             "phase": "kernel_times",
             "ladder_oracle_check_lanes": n_check,
             "ladder_oracle_check": oracle,
+            "cuda_ops_per_call": guard,
+            "cuda_ops_limit": GUARD_MAX_OPS,
         }
     )
     emit({"kernels": rows})
+    if dev.type == "cuda":
+        over = {k: v["ops"] for k, v in guard.items() if v["ops"] > GUARD_MAX_OPS}
+        if over:
+            fail(f"more PyTorch ops on CUDA tensors than uploads and allocations: {over}")
     pt_sweep = next(r for r in rows if r["name"] == "point_op")["group_sweep"]
     group_bad = [f"point_op[{b}, m={w['m']}, G={g}]" for w in pt_sweep["widths"]
                  for b, v in w["bodies"].items() for g, ok in v["equal_by_group"].items() if not ok]
@@ -2555,7 +2886,7 @@ def main() -> int:
     by_phase["whisk_batch_verify"] = timed_phase(
         "whisk_batch_verify", phase_whisk_batch_verify, crs, pres, dev, args.seed + 2, proofs
     )
-    timed_phase("decompress", phase_decompress, pres, proofs, dev)
+    by_phase["decompress"], decode_encs = timed_phase("decompress", phase_decompress, pres, proofs, dev)
     by_phase["whisk_lockstep_prove"] = timed_phase(
         "whisk_lockstep_prove", phase_whisk_lockstep_prove, crs, pres, dev, args.seed + 2, proofs, lockstep_min
     )
@@ -2572,11 +2903,13 @@ def main() -> int:
 
     timed_phase(
         "kernel_times", phase_kernel_times, bases[:n_main], scalars[:n_main], dev, launches, by_phase,
-        n_ladder, n_vec_big, n_vec_small, coef, point_widths, args.product_variants and dev.type == "cuda",
+        n_ladder, n_vec_big, n_vec_small, coef, point_widths, decode_encs,
+        args.product_variants and dev.type == "cuda",
     )
     if dev.type == "cuda":
         timed_phase("group_ab", phase_group_ab, bases[:n_main], scalars[:n_main], coef, dev, n_vec_big, n_vec_small,
                     small_sizes[-1], seg)
+    timed_phase("trace_msm", phase_trace_msm, bases[:n_main], scalars[:n_main], coef, dev)
     emit({"phase": "seconds", "per_phase": PHASE_SECONDS, "total": time.perf_counter() - T_START})
 
     if args.rehearse_cpu:

@@ -5,9 +5,12 @@ ladders.
 Counterpart of the JAX package's `ops.pallas_g1` (`_build_kernel` with its
 `jadd` / `jdbl` / `jmadd` wrappers, and `scalar_mul_glv`, `scalar_mul`,
 `scalar_mul_w1` over `_build_glv_ladder_kernel`, `_build_glv_ladder_w4_kernel`,
-`_build_ladder_w3_kernel`, `_build_ladder_kernel`). The kernels are
+`_build_ladder_w3_kernel`, `_build_ladder_kernel`), and home of the wrappers
+of the three field programs that the JAX package jits (`decompress`,
+`compress`, `glv_records`: `ops.compress`, `ops.msm`). The kernels are
 hand-written CUDA C++ for sm_90a under ../csrc (`fq.cuh`, `g1.cuh`;
-`kernels.cu`, `ladders.cu` and `gather.cu`, plain C interfaces). Each `.cu` is compiled
+`kernels.cu`, `ladders.cu`, `gather.cu` and `field_kernels.cu`, plain C
+interfaces). Each `.cu` is compiled
 with `nvcc` at first use into a shared library of its own under `build/`
 inside the package directory, both compilers started together, and loaded
 with `ctypes`; nothing is built or imported from CUDA when this module is
@@ -79,6 +82,11 @@ ENTRY_POINTS = {
     "gather.cu": {
         "curdle_rowwise_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "field_kernels.cu": {
+        "curdle_decompress": [_P, _P, _P, _P, _P, _I, _P],
+        "curdle_compress": [_P, _P, _P, _P, _I, _P],
+        "curdle_glv_records": [_P, _P, _P, _P, _P, _I, _P],
+    },
 }
 
 KERNEL_NAMES = (
@@ -91,6 +99,9 @@ KERNEL_NAMES = (
     "ladder_w3",
     "ladder_w1",
     "rowwise_gather",
+    "decompress",
+    "compress",
+    "glv_records",
 )
 
 # launches per kernel since the last reset_launch_counts()
@@ -367,11 +378,12 @@ def jmadd(p, q, group: Optional[int] = None):
 # ---------------------------------------------------------------------------
 
 
-def _lane_row(name: str, row: torch.Tensor, m: int) -> torch.Tensor:
-    """A per-lane flag (bool or integer, any batch shape) as the (m,) int32
-    row the kernels read."""
-    flat = row.reshape(-1).to(torch.int32).contiguous()
-    check_tensor(name, flat, (m,))
+def _lane_row(name: str, row: torch.Tensor, m: int, dtype=torch.int32) -> torch.Tensor:
+    """A per-lane flag (bool or integer, any batch shape) as the (m,) row the
+    kernels read: int32 for the ladders, bool (one byte a lane) for the
+    field kernels."""
+    flat = row.reshape(-1).to(dtype).contiguous()
+    check_tensor(name, flat, (m,), dtype)
     return flat
 
 
@@ -504,3 +516,67 @@ def scalar_mul_w1(points, scalars, group: Optional[int] = None):
         check_launch("ladder_w1", rc)
         launch_counts["ladder_w1"] += 1
     return JPoints(*(o.reshape(shape) for o in outs))
+
+
+# ---------------------------------------------------------------------------
+# the field programs (csrc/field_kernels.cu)
+# ---------------------------------------------------------------------------
+
+
+def decompress(x: torch.Tensor, sign: torch.Tensor):
+    """Launch `decompress_kernel`: x (24, n) canonical limbs, sign (n,) the
+    lexicographic-largest flags -> xm, ym (24, n) Montgomery and ok (n,)
+    bool (the root existed). The kernel of `ops.compress._decompress_device`."""
+    x = x.contiguous()
+    n = x.shape[-1]
+    check_tensor("decompress x", x, (24, n))
+    sign = _lane_row("decompress sign", sign, n, torch.bool)
+    xm, ym = (torch.empty((24, n), dtype=torch.int32, device=x.device) for _ in range(2))
+    ok = torch.empty(n, dtype=torch.bool, device=x.device)
+    if n:
+        with torch.cuda.device(x.device):
+            rc = lib().curdle_decompress(
+                x.data_ptr(), sign.data_ptr(), xm.data_ptr(), ym.data_ptr(), ok.data_ptr(), n, stream_ptr()
+            )
+        check_launch("decompress", rc)
+        launch_counts["decompress"] += 1
+    return xm, ym, ok
+
+
+def compress(x: torch.Tensor, y: torch.Tensor):
+    """Launch `compress_kernel`: affine x, y (24, n) Montgomery -> x (24, n)
+    canonical and largest (n,) bool (canonical y > (p - 1) / 2). The kernel
+    of `ops.compress._compress_device`."""
+    x, y = x.contiguous(), y.contiguous()
+    n = x.shape[-1]
+    check_tensor("compress x", x, (24, n))
+    check_tensor("compress y", y, (24, n))
+    xc = torch.empty((24, n), dtype=torch.int32, device=x.device)
+    largest = torch.empty(n, dtype=torch.bool, device=x.device)
+    if n:
+        with torch.cuda.device(x.device):
+            rc = lib().curdle_compress(x.data_ptr(), y.data_ptr(), xc.data_ptr(), largest.data_ptr(), n, stream_ptr())
+        check_launch("compress", rc)
+        launch_counts["compress"] += 1
+    return xc, largest
+
+
+def glv_records(px: torch.Tensor, py: torch.Tensor, pinf: torch.Tensor, neg1: torch.Tensor) -> torch.Tensor:
+    """Launch `glv_records_kernel`: affine px, py (24, n) Montgomery, pinf
+    and neg1 (n,) -> the (49, 2n) stream records [px, sgn(neg1) py, inf |
+    beta px, py, inf]. The kernel of `ops.msm._glv_stream_packed`."""
+    px, py = px.contiguous(), py.contiguous()
+    n = px.shape[-1]
+    check_tensor("glv_records x", px, (24, n))
+    check_tensor("glv_records y", py, (24, n))
+    inf = _lane_row("glv_records inf", pinf, n, torch.bool)
+    neg = _lane_row("glv_records neg1", neg1, n, torch.bool)
+    out = torch.empty((49, 2 * n), dtype=torch.int32, device=px.device)
+    if n:
+        with torch.cuda.device(px.device):
+            rc = lib().curdle_glv_records(
+                px.data_ptr(), py.data_ptr(), inf.data_ptr(), neg.data_ptr(), out.data_ptr(), n, stream_ptr()
+            )
+        check_launch("glv_records", rc)
+        launch_counts["glv_records"] += 1
+    return out

@@ -475,3 +475,11 @@ def unpack_points(a: APoints) -> List[G1]:
 def pack_scalars(scalars: List[Fr], device: DeviceArg = None) -> torch.Tensor:
     """Host Fr list -> (16, N) canonical limb tensor."""
     return from_reference(ints_to_limbs([s.v for s in scalars], FR_LIMBS), device)
+
+
+def unpack_scalars(arr) -> List[Fr]:
+    """(16, N) or (16,) canonical limbs (tensor or numpy) -> host Fr list."""
+    vals = limbs_to_ints(arr)
+    if isinstance(vals, int):
+        return [Fr(vals)]
+    return [Fr(v) for v in vals]

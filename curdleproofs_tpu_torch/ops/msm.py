@@ -346,7 +346,16 @@ def _glv_stream_packed(px, py, pinf, neg1):
     with phi(x, y) = (beta·x, y) and sgn negating y where s1 was negative.
     (24, n) Montgomery affine coords -> (49, 2n) packed records. Identity
     lanes ride on the inf flag (their 0-coords map to 0 under both ops).
-    Plain tensor code on whatever device the points lie on."""
+    The JAX package jits this into one XLA program; here a CUDA tensor goes
+    to one launch of `cuda_g1.glv_records` (csrc/field_kernels.cu), a CPU
+    tensor to the plain version."""
+    if px.is_cuda:
+        return cuda_g1.glv_records(px, py, pinf, neg1)
+    return _glv_stream_packed_plain(px, py, pinf, neg1)
+
+
+def _glv_stream_packed_plain(px, py, pinf, neg1):
+    """The plain version of `_glv_stream_packed`, on `ops.modarith`."""
     beta = from_reference(_beta_mont_limbs(), px.device).reshape(24, 1).expand_as(px)
     y1 = ma.select(neg1, ma.neg(FQ_SPEC, py), py)
     x2 = ma.mont_mul(FQ_SPEC, px, beta)

@@ -242,9 +242,11 @@ def AreValidWhiskShuffleProofs(
         n = crs.ell + crs.n_blinders
 
         # Decompress EVERY instance's tracker columns in one batched call
-        # when the K*4*ell total reaches device scale: one dispatch of the
-        # batched sqrt kernel (ops.compress) replaces K*4 native loops of
-        # per-point 381-bit sqrts — the single largest per-proof cost.
+        # when the K*4*ell total reaches device scale: on the card one
+        # launch of the square-root kernel (ops.compress ->
+        # cuda_g1.decompress, csrc/field_kernels.cu) replaces K*4 native
+        # loops of per-point 381-bit square roots, the single largest
+        # per-proof cost; on the CPU the plain chain of ops.compress.
         cols: Optional[List[List[G1]]] = None
         total_pts = sum(len(pre) * 2 + len(post) * 2 for pre, post, _ in instances)
         if total_pts >= _cv.DECOMPRESS_DEVICE_MIN:

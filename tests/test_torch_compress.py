@@ -1,5 +1,6 @@
 """The port's batched point (de)compression (curdleproofs_tpu_torch.ops.compress)
-on device="cpu" — the plain PyTorch chain the card runs too — against the
+on device="cpu" — the plain PyTorch chain that the card's kernels
+(csrc/field_kernels.cu) are held against — against the
 host decoder (csrc/g1_host.c and the oracle) and against the JAX package's
 `ops.compress` on the same encodings: the cases of tests/test_compress.py,
 the same SerdeError messages, and the routing of
@@ -17,6 +18,7 @@ from curdleproofs_tpu_torch.curve import G1
 from curdleproofs_tpu_torch.fields import FQ_MOD, FR_MOD, Fr
 from curdleproofs_tpu_torch.ops import compress as tcompress
 from curdleproofs_tpu_torch.ops import g1 as og
+from curdleproofs_tpu_torch.ops.fieldspec import limbs_to_ints
 from curdleproofs_tpu_torch.utils.errors import SerdeError
 
 torch.set_num_threads(1)
@@ -66,6 +68,20 @@ def test_round_trip_both_signs():
     encs = [q.to_compressed_bytes() for q in (p, -p)]
     assert encs[0] != encs[1]
     assert tcompress.batch_decompress_to_host(encs, "cpu") == [p, -p]
+
+
+def test_parse_encodings_reads_x_sign_and_infinity():
+    """The host parse that batch_decompress runs before the device chain:
+    x limbs, the sign flag and the infinity flag of each encoding."""
+    pts = rand_points(6, 11)
+    pts[2] = G1.identity()
+    pts[3] = -pts[4]
+    x, signs, infs = tcompress.parse_encodings([p.to_compressed_bytes() for p in pts])
+    assert x.shape == (24, 6)
+    assert limbs_to_ints(x) == [0 if p.inf else p.x for p in pts]
+    assert infs.tolist() == [p.inf for p in pts]
+    assert signs.tolist() == [bool(p.to_compressed_bytes()[0] & 0x20) and not p.inf for p in pts]
+    assert signs[3] != signs[4]
 
 
 def _bad_batches():

@@ -23,6 +23,7 @@ print("BAD=" + ",".join(bad))
     "module",
     [
         "curdleproofs_tpu_torch",
+        "curdleproofs_tpu_torch.ops",
         "curdleproofs_tpu_torch.ops.msm",
         "curdleproofs_tpu_torch.ops.cuda_g1",
         "curdleproofs_tpu_torch.ops.stream_scan",
@@ -34,6 +35,7 @@ print("BAD=" + ",".join(bad))
         "curdleproofs_tpu_torch.ops.route",
         "curdleproofs_tpu_torch.ops.glv",
         "curdleproofs_tpu_torch.utils.host_native",
+        "curdleproofs_tpu_torch.utils.profiling",
         "curdleproofs_tpu_torch.curve",
         "curdleproofs_tpu_torch.ops.compress",
         "curdleproofs_tpu_torch.vectors",

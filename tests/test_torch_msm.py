@@ -179,8 +179,15 @@ def body_inputs():
 
 
 def test_glv_stream_packed_equals_jax(body_inputs):
-    assert tuple(body_inputs["tpacked"].shape) == (49, body_inputs["n2"])
-    assert _same(body_inputs["tpacked"], body_inputs["jpacked"])
+    """The records on the CPU (the plain version, which the card's
+    `glv_records` kernel is held against) limb for limb the JAX package's,
+    with an identity lane and mixed neg1."""
+    packed = body_inputs["tpacked"]
+    n = body_inputs["n2"] // 2
+    assert tuple(packed.shape) == (49, 2 * n)
+    assert _same(packed, body_inputs["jpacked"])
+    assert packed[48, :n].any() and not packed[48, :n].all()  # identity lanes beside points
+    assert not torch.equal(packed[24:48, :n], packed[24:48, n:])  # some y negated (neg1 mixed)
 
 
 def test_stream_window_partials_equals_jax(body_inputs, monkeypatch):

@@ -41,6 +41,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 import types
 from pathlib import Path
@@ -54,7 +55,7 @@ from curdleproofs_tpu_torch.ops.glv import BETA as _GLV_BETA
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-HEADERS = ("fq.cuh", "g1.cuh")
+HEADERS = ("fq.cuh", "fq_group.cuh", "g1.cuh")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -83,9 +84,10 @@ ENTRY_POINTS = {
         "curdle_rowwise_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
     "field_kernels.cu": {
-        "curdle_decompress": [_P, _P, _P, _P, _P, _I, _P],
+        "curdle_decompress": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "curdle_compress": [_P, _P, _P, _P, _I, _P],
         "curdle_glv_records": [_P, _P, _P, _P, _P, _I, _P],
+        "curdle_launch_floor": [_P],
     },
 }
 
@@ -116,7 +118,9 @@ GLV_W = int(os.environ.get("CURDLEPROOFS_GLV_W", "3"))
 GROUPS = (1, 2, 4)
 POINT_THREADS = 128
 LADDER_THREADS = 32
+FIELD_THREADS = 128
 
+_lock = threading.Lock()
 _lib: Optional[types.SimpleNamespace] = None
 build_seconds: Optional[float] = None  # nvcc wall time of this process's build
 
@@ -167,10 +171,19 @@ def nvcc_command(unit: str, out: Path, extra=()) -> list:
 def lib() -> types.SimpleNamespace:
     """The kernels' C entry points, bound and ready to call. At first use
     every source without a library is compiled, one `nvcc` each, all started
-    together."""
-    global _lib, build_seconds
+    together. Threads that make their first launch at once wait on one lock:
+    one of them builds, and all get the same bindings."""
+    global _lib
     if _lib is not None:
         return _lib
+    with _lock:
+        if _lib is None:  # else another thread built it meanwhile
+            _lib = _build_and_bind()
+        return _lib
+
+
+def _build_and_bind() -> types.SimpleNamespace:
+    global build_seconds
     paths = {unit: library_path(unit) for unit in ENTRY_POINTS}
     running = []
     t0 = time.perf_counter()
@@ -178,7 +191,9 @@ def lib() -> types.SimpleNamespace:
         if so.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        # process and thread in the name: a build of another process never
+        # shares the temporary file
+        tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = nvcc_command(unit, tmp)
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         running.append((so, tmp, cmd, proc))
@@ -201,7 +216,6 @@ def lib() -> types.SimpleNamespace:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             setattr(bound, name, fn)
-    _lib = bound
     return bound
 
 
@@ -277,6 +291,30 @@ def ladder_w1_group(m: int) -> int:
 def ladder_glv_group(m: int, w: int) -> int:
     """Threads a lane for the GLV ladder of window width w at m lanes."""
     four, two = GLV_GROUP_LIMITS[w]
+    return 4 if m <= four else 2 if m <= two else 1
+
+
+# decompress: (widest m for G = 4, widest m for G = 2); G = 1 beyond. A
+# lane is one chain of 462 dependent products, which a group splits product
+# by product (csrc/fq_group.cuh). The split adds shuffles, moves and a carry
+# resolution, about as many instructions a thread as one thread's whole
+# product (a square too: the group's is the product), and a warp's time
+# follows its instructions at every width: G = 4 wins while one thread a
+# lane leaves the schedulers short of warps, by 18 % at 1,024 and 4,096
+# lanes; G = 2 by 3 % at 8,192; G = 1 is twice as fast at 31,753
+# (chip_smoke.py `decompress` phase, `group_sweep`, on an NVIDIA H100 80GB
+# HBM3 at 700 W; PERF.md).
+DECOMPRESS_GROUP_LIMITS = (4096, 8192)
+# Whether a group keeps the square root's 16 odd powers in registers (the
+# chain unrolled, every digit a constant) or in local memory: registers, 4
+# to 8 % faster up to 8,192 lanes, level at 31,753 (the same sweep, which
+# times both).
+DECOMPRESS_UNROLLED = True
+
+
+def decompress_group(m: int) -> int:
+    """Threads a lane for `decompress` at m lanes."""
+    four, two = DECOMPRESS_GROUP_LIMITS
     return 4 if m <= four else 2 if m <= two else 1
 
 
@@ -523,12 +561,21 @@ def scalar_mul_w1(points, scalars, group: Optional[int] = None):
 # ---------------------------------------------------------------------------
 
 
-def decompress(x: torch.Tensor, sign: torch.Tensor):
+def decompress(x: torch.Tensor, sign: torch.Tensor, group: Optional[int] = None,
+               unrolled: Optional[bool] = None):
     """Launch `decompress_kernel`: x (24, n) canonical limbs, sign (n,) the
     lexicographic-largest flags -> xm, ym (24, n) Montgomery and ok (n,)
-    bool (the root existed). The kernel of `ops.compress._decompress_device`."""
+    bool (the root existed). group: threads a lane (default
+    `decompress_group(n)`); unrolled: a group's odd powers in registers
+    (default DECOMPRESS_UNROLLED; G > 1 only). The kernel of
+    `ops.compress._decompress_device`."""
     x = x.contiguous()
     n = x.shape[-1]
+    group = decompress_group(n) if group is None else group
+    check_group("decompress", group)
+    unrolled = DECOMPRESS_UNROLLED and group > 1 if unrolled is None else unrolled
+    if unrolled and group == 1:
+        raise ValueError("decompress: the unrolled chain is built for groups of 2 and 4 only")
     check_tensor("decompress x", x, (24, n))
     sign = _lane_row("decompress sign", sign, n, torch.bool)
     xm, ym = (torch.empty((24, n), dtype=torch.int32, device=x.device) for _ in range(2))
@@ -536,7 +583,8 @@ def decompress(x: torch.Tensor, sign: torch.Tensor):
     if n:
         with torch.cuda.device(x.device):
             rc = lib().curdle_decompress(
-                x.data_ptr(), sign.data_ptr(), xm.data_ptr(), ym.data_ptr(), ok.data_ptr(), n, stream_ptr()
+                x.data_ptr(), sign.data_ptr(), xm.data_ptr(), ym.data_ptr(), ok.data_ptr(), group, int(unrolled),
+                launch_blocks(n, group, FIELD_THREADS), n, stream_ptr(),
             )
         check_launch("decompress", rc)
         launch_counts["decompress"] += 1
@@ -580,3 +628,9 @@ def glv_records(px: torch.Tensor, py: torch.Tensor, pinf: torch.Tensor, neg1: to
         check_launch("glv_records", rc)
         launch_counts["glv_records"] += 1
     return out
+
+
+def launch_floor() -> None:
+    """One launch of an empty kernel on the current stream: the fixed cost of
+    a launch, timed beside the field kernels. On no path, and not counted."""
+    check_launch("launch_floor", lib().curdle_launch_floor(stream_ptr()))

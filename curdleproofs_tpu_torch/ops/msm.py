@@ -78,9 +78,10 @@ from curdleproofs_tpu_torch.utils.profiling import metrics, timed
 FR_BITS = 255
 
 # GLV endomorphism split inside the stream engine (see _msm_stream_impl):
-# halves the window count for the same scan work. Tests switch it off to
-# exercise the non-split path.
-STREAM_GLV = True
+# halves the window count for the same scan work. The JAX package's knob,
+# under its name and default (CURDLEPROOFS_STREAM_GLV=0 switches it off);
+# tests switch it off to exercise the non-split path.
+STREAM_GLV = os.environ.get("CURDLEPROOFS_STREAM_GLV", "1") == "1"
 GLV_STREAM_MIN_N = 128  # below this, decompose/packing overhead dominates
 
 # The scan with in-step boundary selection takes over from the full-prefix
@@ -109,11 +110,13 @@ SEL_SLOT_OPTIONS = (128, 256)
 
 # Above this width one MSM runs as SLICES of this size plus one host add per
 # extra slice (MSM is linear in its (point, scalar) pairs); each slice picks
-# its own window bits. 0 disables.
-STREAM_SPLIT = 1 << 16
+# its own window bits. 0 disables. CURDLEPROOFS_STREAM_SPLIT, as in the JAX
+# package.
+STREAM_SPLIT = int(os.environ.get("CURDLEPROOFS_STREAM_SPLIT", str(1 << 16)))
 
 # auto-dispatch: the streaming Pippenger takes sizes from here up
-STREAM_MIN = 1 << 14
+# (CURDLEPROOFS_STREAM_MIN, as in the JAX package)
+STREAM_MIN = int(os.environ.get("CURDLEPROOFS_STREAM_MIN", str(1 << 14)))
 
 # The JAX package's crossover between its sort-based Pippenger and its XLA
 # ladder on a CPU backend; `msm()` here never dispatches on it (below

@@ -38,6 +38,7 @@ order, and are what CPU tensors get.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -45,8 +46,9 @@ import torch
 from curdleproofs_tpu_torch.ops import cuda_g1
 from curdleproofs_tpu_torch.ops import g1 as og
 
-# lane width override for tests and tuning (0 = default)
-_LANES = 0
+# lane width override for tests and tuning (0 = default), read from
+# CURDLEPROOFS_SCAN_LANES as the JAX package reads it
+_LANES = int(os.environ.get("CURDLEPROOFS_SCAN_LANES", "0"))
 
 # Sub-chains a lane of both scans by default, on the CPU as on the card: the
 # fastest of K in {1, 2, 4, 8, 16, 32} for `scan_records_sel` on an H100 at

@@ -1,10 +1,11 @@
-"""The multi-device dry run: every sharded MSM on a mesh of the whole world,
-at small sizes, against the exact host oracle.
+"""The single-device entry and the multi-device dry run.
 
-Counterpart of the JAX package's `__graft_entry__.dryrun_multichip` and
-`_dryrun_batched_2d`. Every rank of the world calls `dryrun_multichip(n)`
-(n = the world size) and it returns on every rank or raises on every rank
-that found a mismatch.
+Counterpart of the JAX package's `__graft_entry__.entry`,
+`dryrun_multichip` and `_dryrun_batched_2d`. `entry()` returns one
+Pippenger window-partials step and its inputs. Every rank of the world
+calls `dryrun_multichip(n)` (n = the world size): every sharded MSM on a
+mesh of the whole world, at small sizes, against the exact host oracle; it
+returns on every rank or raises on every rank that found a mismatch.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from curdleproofs_tpu_torch.parallel.msm import (
     msm_sharded_ladder,
     msm_sharded_stream,
 )
-from curdleproofs_tpu_torch.utils.device import DeviceArg
+from curdleproofs_tpu_torch.utils.device import DeviceArg, resolve_device
 
 
 def points_and_scalars(n: int, seed: int = 7):
@@ -42,6 +43,26 @@ def points_and_scalars(n: int, seed: int = 7):
         for i in range(n)
     ]
     return pts, scs
+
+
+def entry(device: DeviceArg = None):
+    """(forward, example_args): one Pippenger window-partials step at
+    n = 1024 points and c = 8 bits, the JAX `entry()`'s shapes and inputs
+    (`points_and_scalars(1024)`). The points are packed into the (49, n)
+    stream records and the scalars into their (W, n) digits on `device` (the
+    card unless the caller passes "cpu"); `forward(packed, digits)` returns
+    the window total (Jacobian (24,)) and the bucket-weighted boundary sums
+    (Jacobian (24, W)) of `ops.msm._window_partials`."""
+    dev = resolve_device(device)
+    n, c = 1024, 8
+    pts, scs = points_and_scalars(n)
+    packed = omsm._pack_records(og.pack_points(pts, dev))
+    digits = omsm.extract_digits(og.pack_scalars(scs, dev), c)
+
+    def forward(packed, digits):
+        return omsm._window_partials(packed, digits, c)
+
+    return forward, (packed, digits)
 
 
 def dryrun_multichip(n_devices: int, device: DeviceArg = None) -> None:

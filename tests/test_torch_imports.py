@@ -149,3 +149,152 @@ def test_wrappers_have_no_cpu_path_for_cuda_requests():
         with pytest.raises(ValueError, match="CUDA tensor"):
             call()
     assert all(v == 0 for v in cuda_g1.launch_counts.values())
+
+
+# ---------------------------------------------------------------------------
+# the facade and the environment knobs, against the JAX package
+# ---------------------------------------------------------------------------
+
+FACADE_CONSTANTS = ("CURVE_ORDER", "FR_MOD", "FQ_MOD", "G1_GENERATOR", "G1_IDENTITY", "__version__")
+
+
+def test_facade_has_the_reference_names():
+    """Every top-level name of the JAX package (its eager names and the lazy
+    protocol names of `models.api`) is a name of the port's facade, with the
+    same value where it is a constant."""
+    import curdleproofs_tpu as jpkg
+    from curdleproofs_tpu.models import api as japi
+
+    import curdleproofs_tpu_torch as pkg
+
+    import types
+
+    # the JAX package's own names: not its submodules, which importing them sets
+    eager = [n for n, v in vars(jpkg).items() if not n.startswith("_") and not isinstance(v, types.ModuleType)]
+    eager.append("__version__")
+    reference = set(eager) | set(japi.__all__)
+    assert set(FACADE_CONSTANTS) <= reference
+    missing = sorted(n for n in reference if not hasattr(pkg, n))
+    assert not missing, missing
+    assert reference - {"__version__"} <= set(pkg.__all__) and "__version__" in pkg.__all__
+    assert pkg.__version__ == jpkg.__version__ == "0.1.0"
+    assert (pkg.CURVE_ORDER, pkg.FR_MOD, pkg.FQ_MOD) == (jpkg.CURVE_ORDER, jpkg.FR_MOD, jpkg.FQ_MOD)
+    assert pkg.G1_GENERATOR.to_compressed_bytes() == jpkg.G1_GENERATOR.to_compressed_bytes()
+    assert pkg.G1_IDENTITY.to_compressed_bytes() == jpkg.G1_IDENTITY.to_compressed_bytes()
+    assert pkg.G1_GENERATOR == pkg.G1() and pkg.G1_IDENTITY == pkg.G1.identity()
+
+
+# knob -> (module, constant, a value to set, the constant that value gives)
+KNOBS = {
+    "CURDLEPROOFS_STREAM_GLV": ("ops.msm", "STREAM_GLV", "0", False),
+    "CURDLEPROOFS_STREAM_SPLIT": ("ops.msm", "STREAM_SPLIT", "0", 0),
+    "CURDLEPROOFS_STREAM_MIN": ("ops.msm", "STREAM_MIN", "4096", 4096),
+    "CURDLEPROOFS_SCAN_LANES": ("ops.stream_scan", "_LANES", "64", 64),
+}
+
+KNOB_PROBE = """
+import json
+from curdleproofs_tpu_torch.{module} import {constant} as v
+print("VALUE=" + json.dumps(v))
+"""
+
+
+def _read_knob(knob, env_value):
+    module, constant, _, _ = KNOBS[knob]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH" and k not in KNOBS}
+    if env_value is not None:
+        env[knob] = env_value
+    proc = subprocess.run(
+        [sys.executable, "-c", KNOB_PROBE.format(module=module, constant=constant)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    import json
+
+    return json.loads(proc.stdout.split("VALUE=")[1])
+
+
+@pytest.mark.parametrize("knob", sorted(KNOBS))
+def test_knob_is_read_from_the_environment(knob):
+    """Each knob the JAX package reads at import, under its name, changes the
+    port's constant the same way."""
+    _, _, value, want = KNOBS[knob]
+    got = _read_knob(knob, value)
+    assert got == want and type(got) is type(want)
+
+
+def test_knob_defaults_are_the_reference_defaults():
+    """Unset, each knob gives the JAX package's default (read in this
+    process, where neither package saw the variables set by the tests)."""
+    if any(k in os.environ for k in KNOBS):
+        pytest.skip("a knob is set in this environment")
+    from curdleproofs_tpu.ops import msm as jmsm
+    from curdleproofs_tpu.ops import stream_scan as jstream
+
+    from curdleproofs_tpu_torch.ops import msm as tmsm
+    from curdleproofs_tpu_torch.ops import stream_scan as tstream
+
+    assert (tmsm.STREAM_GLV, tmsm.STREAM_SPLIT, tmsm.STREAM_MIN) == (jmsm.STREAM_GLV, jmsm.STREAM_SPLIT, jmsm.STREAM_MIN)
+    assert (tmsm.STREAM_GLV, tmsm.STREAM_SPLIT, tmsm.STREAM_MIN) == (True, 1 << 16, 1 << 14)
+    assert tstream._LANES == jstream._LANES == 0
+
+
+# ---------------------------------------------------------------------------
+# the CUDA build under concurrent first use
+# ---------------------------------------------------------------------------
+
+
+def test_cuda_build_runs_once_under_concurrent_first_use(monkeypatch, tmp_path):
+    """Two threads making the first launch at once: one `nvcc` a source, the
+    temporary names carry process and thread, and both threads get the same
+    bindings."""
+    import threading
+    import time
+    import types
+
+    from curdleproofs_tpu_torch.ops import cuda_g1
+
+    started, loaded = [], []
+
+    class FakeCompiler:
+        def __init__(self, cmd, **kwargs):
+            started.append(cmd)
+            self.out = cmd[cmd.index("-o") + 1]
+            self.returncode = 0
+
+        def communicate(self):
+            time.sleep(0.2)  # both threads are inside lib() by now
+            with open(self.out, "w") as fh:
+                fh.write("built")
+            return "", ""
+
+    def fake_cdll(path):
+        loaded.append(path)
+        return types.SimpleNamespace(**{n: (lambda *a: 0) for u in cuda_g1.ENTRY_POINTS.values() for n in u})
+
+    monkeypatch.setattr(cuda_g1, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_g1, "_lib", None)
+    monkeypatch.setattr(cuda_g1, "_find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(cuda_g1.subprocess, "Popen", FakeCompiler)
+    monkeypatch.setattr(cuda_g1.ctypes, "CDLL", fake_cdll)
+    barrier = threading.Barrier(2)
+    got = [None, None]
+
+    def first_launch(k):
+        barrier.wait()
+        got[k] = cuda_g1.lib()
+
+    threads = [threading.Thread(target=first_launch, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30)
+    assert got[0] is not None and got[0] is got[1]
+    assert len(started) == len(cuda_g1.ENTRY_POINTS)  # one compiler a source
+    assert sorted(cmd[-1].rsplit("/", 1)[1] for cmd in started) == sorted(cuda_g1.ENTRY_POINTS)
+    for cmd in started:
+        tmp = cmd[cmd.index("-o") + 1]
+        assert f".{os.getpid()}." in tmp and tmp.endswith(".tmp")
+    assert sorted(loaded) == sorted(str(cuda_g1.library_path(u)) for u in cuda_g1.ENTRY_POINTS)
+    assert all(os.path.exists(p) for p in loaded)
+    assert cuda_g1.lib() is got[0] and len(started) == len(cuda_g1.ENTRY_POINTS)

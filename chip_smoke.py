@@ -30,9 +30,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              r+2 (its last add doubles), all three coordinates and the host's
              P*s; the three field kernels at 64 lanes: decompress with x = 0
              of both signs, three x without a root, x = p - 1, at every
-             thread group G = 1, 2, 4 (and G = 2, 4 with the odd powers in
-             registers), compress on its output, glv_records with identity
-             lanes and mixed neg1) — integer equality
+             thread group G = 1, 2, 4, compress on its output, glv_records
+             with identity lanes and mixed neg1) — integer equality
   host_native  msm_prep_batch at n = 2^16, c = 13, L = 512 array-equal to the
              numpy chain, and both times
   msm_2e16   msm() at n = 2^16: bases P_i = (a + i*d + i^2*e)*G, uniform scalars;
@@ -80,7 +79,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              1,024, 4,096, 8,192 and 31,744 points in turns, with the size
              from which the kernel path wins; outside the counted run, X1's
              thread-group sweep (`group_sweep`: 1,024, 4,096, 8,192, 16,384
-             and 31,753 lanes, every group and register variant, CUDA-event
+             and 31,753 lanes, every group, CUDA-event
              and CUDA-graph ms, warps a SM, equal to G = 1, the group the
              wrapper picks and the fastest) and ptxas's registers, stack
              and spills of every decompress_kernel<G> (a build started in
@@ -239,10 +238,8 @@ MULS_PER_SQR = 12 * 13 // 2 + 12 * 12 + 12
 # the tracker decode against the host C decoder at these widths
 DECODE_SIZES = (1024, 4096, 8192, 31744)
 # X1's thread-group sweep: these widths of tracker x (the widest with the
-# edge lanes: the kernels line's 31,753), every (group, odd powers in
-# registers) built
+# edge lanes: the kernels line's 31,753), every group built
 DECOMPRESS_SWEEP_WIDTHS = (1024, 4096, 8192, 16384, 31753)
-DECOMPRESS_VARIANTS = ((1, False), (2, False), (4, False), (2, True), (4, True))
 SMS = 132  # streaming multiprocessors of an H100 SXM
 # PyTorch ops on CUDA tensors that one call of `_glv_stream_packed` or of
 # `batch_decompress` may run: uploads, allocations, views, the readback
@@ -252,12 +249,6 @@ GUARD_MAX_OPS = 16
 
 PHASE_SECONDS = {}
 T_START = time.perf_counter()
-
-
-def _variant(group: int, unrolled: bool) -> str:
-    """A decompress variant's key: its group, "r" where the odd powers are
-    in registers."""
-    return f"{group}r" if unrolled else str(group)
 
 
 def sqrt_chain_cost(max_window: int = 8) -> tuple:
@@ -1451,18 +1442,17 @@ def decompress_group_sweep(x, signs, dev) -> dict:
         sk = from_reference(np.ascontiguousarray(s_all[:k]), dev)
         ref = cuda_g1.decompress(xk, sk, group=1)
         by_group = {}
-        for g, unrolled in DECOMPRESS_VARIANTS:
-            fn = lambda g=g, u=unrolled: cuda_g1.decompress(xk, sk, group=g, unrolled=u)
-            by_group[_variant(g, unrolled)] = {
+        for g in cuda_g1.GROUPS:
+            fn = lambda g=g: cuda_g1.decompress(xk, sk, group=g)
+            by_group[str(g)] = {
                 "equal": max_abs_err(list(fn()), list(ref)) == 0,
                 "ms": cuda_ms(fn, 5),
                 "graph_ms": graph_ms(fn, 5),
                 "warps_a_sm": k * g / 32 / SMS,
             }
-        g = cuda_g1.decompress_group(k)
         out[str(k)] = {
             "by_group": by_group,
-            "picked": _variant(g, cuda_g1.DECOMPRESS_UNROLLED and g > 1),
+            "picked": str(cuda_g1.decompress_group(k)),
             "fastest": min(by_group, key=lambda v: by_group[v]["graph_ms"]),
         }
     return out
@@ -1519,10 +1509,9 @@ def field_edge_checks(bases, dev, m: int = 64) -> dict:
         "glv_records": max_abs_err(got_r, omsm._glv_stream_packed_plain(ap.x, ap.y, ap.inf, neg1)),
     }
     by_group = {}
-    if dev.type == "cuda":  # X1 at every thread group (and a group's odd powers in registers)
-        for g, unrolled in DECOMPRESS_VARIANTS:
-            by_group[_variant(g, unrolled)] = max_abs_err(
-                list(cuda_g1.decompress(x_d, s_d, group=g, unrolled=unrolled)), list(want))
+    if dev.type == "cuda":  # X1 at every thread group
+        for g in cuda_g1.GROUPS:
+            by_group[str(g)] = max_abs_err(list(cuda_g1.decompress(x_d, s_d, group=g)), list(want))
     return {k: {"max_abs_err": v, "launched": launched[k]} for k, v in out.items()} | {
         "lanes": {"decompress": x.shape[1], "glv_records": m},
         "ok_lanes": int(to_reference(got[2]).sum()),
@@ -2502,11 +2491,11 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_
         # every thread group at the same lanes, each against the plain version
         want_dec = plain_out["decompress"]
         by_group = {}
-        for g, unrolled in DECOMPRESS_VARIANTS:
-            fn = lambda g=g, u=unrolled: cuda_g1.decompress(x_dec, s_dec, group=g, unrolled=u)
-            by_group[_variant(g, unrolled)] = {"max_abs_err": max_abs_err(list(fn()), list(want_dec)),
-                                               "ms": cuda_ms(fn, 5), "graph_ms": graph_ms(fn, 5)}
-        rows[-1].update(group=cuda_g1.decompress_group(m_dec), unrolled=cuda_g1.DECOMPRESS_UNROLLED,
+        for g in cuda_g1.GROUPS:
+            fn = lambda g=g: cuda_g1.decompress(x_dec, s_dec, group=g)
+            by_group[str(g)] = {"max_abs_err": max_abs_err(list(fn()), list(want_dec)),
+                                "ms": cuda_ms(fn, 5), "graph_ms": graph_ms(fn, 5)}
+        rows[-1].update(group=cuda_g1.decompress_group(m_dec),
                         graph_ms=graph_ms(lambda: ocompress._decompress_device(x_dec, s_dec), 5), by_group=by_group)
     dec_pts = og.APoints(dec[0], dec[1], torch.zeros(m_dec, dtype=torch.bool, device=dev))
     row(

@@ -129,7 +129,7 @@ __device__ __forceinline__ bool fq_is_largest(const Fq& y) {
 // ---------------------------------------------------------------------------
 
 // The square-root chain of FQ_SQRT_SHIFT / FQ_SQRT_DIGIT as constant
-// expressions, for the unrolled chain whose odd powers stay in registers
+// expressions, for the groups' unrolled chain
 // (tests/test_torch_field_kernels.py checks the copies are equal).
 __host__ __device__ constexpr int sqrt_shift(int s) {
   constexpr uint8_t v[FQ_SQRT_STEPS] = {
@@ -158,32 +158,20 @@ __device__ __forceinline__ void sqrt_steps_unrolled(FqG<G>& y, const FqG<G> (&od
   }
 }
 
-// y = rhs^((p+1)/4) on a group: the 16 odd powers of rhs in local memory
-// indexed by the chain's digits, or (UNROLLED) in registers, the chain
-// unrolled so that every index is a constant.
-template <int G, bool UNROLLED>
+// y = rhs^((p+1)/4) on a group, the chain unrolled so that every digit is a
+// constant and the 16 odd powers of rhs stay in registers (4 to 8 % faster
+// than indexing them in local memory, as G = 1 does; chip_smoke.py timed
+// both, PERF.md).
+template <int G>
 __device__ __forceinline__ FqG<G> sqrt_chain_g(const FqG<G>& rhs) {
   FqG<G> odd[FQ_SQRT_ODD_POWERS];
   odd[0] = rhs;
   const FqG<G> rhs2 = fq_sqr_g<G>(rhs);
-  if constexpr (UNROLLED) {
 #pragma unroll
-    for (int j = 1; j < FQ_SQRT_ODD_POWERS; ++j) odd[j] = fq_mul_g<G>(odd[j - 1], rhs2);
-    FqG<G> y = odd[sqrt_digit(0) >> 1];
-    sqrt_steps_unrolled<G, 1>(y, odd);
-    return y;
-  } else {
-#pragma unroll 1
-    for (int j = 1; j < FQ_SQRT_ODD_POWERS; ++j) odd[j] = fq_mul_g<G>(odd[j - 1], rhs2);
-    FqG<G> y = odd[FQ_SQRT_DIGIT[0] >> 1];
-#pragma unroll 1
-    for (int s = 1; s < FQ_SQRT_STEPS; ++s) {
-#pragma unroll 1
-      for (int b = 0; b < FQ_SQRT_SHIFT[s]; ++b) y = fq_sqr_g<G>(y);
-      if (FQ_SQRT_DIGIT[s]) y = fq_mul_g<G>(y, odd[FQ_SQRT_DIGIT[s] >> 1]);  // the same in every thread
-    }
-    return y;
-  }
+  for (int j = 1; j < FQ_SQRT_ODD_POWERS; ++j) odd[j] = fq_mul_g<G>(odd[j - 1], rhs2);
+  FqG<G> y = odd[sqrt_digit(0) >> 1];
+  sqrt_steps_unrolled<G, 1>(y, odd);
+  return y;
 }
 
 // Canonical y > (p - 1) / 2 on a group: y - ((p - 1) / 2 + 1) does not borrow.
@@ -195,8 +183,8 @@ __device__ __forceinline__ bool fq_is_largest_g(const FqG<G>& y) {
 // G = 1: one thread a lane (the kernel of the first port, unchanged); G = 2,
 // 4: G threads a lane, thread t of the grid serving lane t / G, the threads
 // past the last lane computing it again and storing nothing, so every warp
-// stays whole for the shuffles. UNROLLED only for G > 1.
-template <int G, bool UNROLLED>
+// stays whole for the shuffles.
+template <int G>
 __global__ void __launch_bounds__(FIELD_THREADS)
 decompress_kernel(const uint32_t* __restrict__ x, const uint8_t* __restrict__ sign,
                   uint32_t* __restrict__ xm_out, uint32_t* __restrict__ ym_out,
@@ -231,7 +219,7 @@ decompress_kernel(const uint32_t* __restrict__ x, const uint8_t* __restrict__ si
     const size_t stride = (size_t)n;
     const FqG<G> xm = fq_mul_g<G>(fq_load_g<G>(x + i, stride), grp_slice<G>(FQ_R2));
     const FqG<G> rhs = fq_add_g<G>(fq_mul_g<G>(fq_sqr_g<G>(xm), xm), grp_slice<G>(FQ_FOUR_MONT));
-    FqG<G> y = sqrt_chain_g<G, UNROLLED>(rhs);
+    FqG<G> y = sqrt_chain_g<G>(rhs);
     const bool good = fq_equal_g<G>(fq_sqr_g<G>(y), rhs);
     // the negation computed by every group and selected, so that no
     // collective runs under a condition that differs between groups
@@ -307,10 +295,10 @@ __global__ void launch_floor_kernel() {}
 
 inline int field_blocks(int n) { return (n + FIELD_THREADS - 1) / FIELD_THREADS; }
 
-template <int G, bool UNROLLED>
+template <int G>
 int launch_decompress(const void* x, const void* sign, void* xm, void* ym, void* ok, int blocks, int n,
                       cudaStream_t stream) {
-  decompress_kernel<G, UNROLLED><<<blocks, FIELD_THREADS, 0, stream>>>(
+  decompress_kernel<G><<<blocks, FIELD_THREADS, 0, stream>>>(
       (const uint32_t*)x, (const uint8_t*)sign, (uint32_t*)xm, (uint32_t*)ym, (uint8_t*)ok, n);
   return (int)cudaGetLastError();
 }
@@ -323,15 +311,11 @@ extern "C" {
 
 // x (24, n) canonical, sign (n,) bool -> xm, ym (24, n) Montgomery, ok (n,)
 // bool, with `group` threads a lane (1, 2 or 4) on `blocks` blocks of
-// FIELD_THREADS; `unrolled` keeps a group's odd powers in registers.
+// FIELD_THREADS.
 int curdle_decompress(const void* x, const void* sign, void* xm, void* ym, void* ok, int group,
-                      int unrolled, int blocks, int n, void* stream) {
-  if (n < 1 || blocks < 1 || !(group == 1 || group == 2 || group == 4) || (unrolled && group == 1))
-    return (int)cudaErrorInvalidValue;
-  const auto launch = unrolled ? (group == 2 ? launch_decompress<2, true> : launch_decompress<4, true>)
-                      : group == 1 ? launch_decompress<1, false>
-                      : group == 2 ? launch_decompress<2, false>
-                                   : launch_decompress<4, false>;
+                      int blocks, int n, void* stream) {
+  if (n < 1 || blocks < 1 || !(group == 1 || group == 2 || group == 4)) return (int)cudaErrorInvalidValue;
+  const auto launch = group == 1 ? launch_decompress<1> : group == 2 ? launch_decompress<2> : launch_decompress<4>;
   return launch(x, sign, xm, ym, ok, blocks, n, (cudaStream_t)stream);
 }
 

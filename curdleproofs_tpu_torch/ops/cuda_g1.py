@@ -84,7 +84,7 @@ ENTRY_POINTS = {
         "curdle_rowwise_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
     "field_kernels.cu": {
-        "curdle_decompress": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "curdle_decompress": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
         "curdle_compress": [_P, _P, _P, _P, _I, _P],
         "curdle_glv_records": [_P, _P, _P, _P, _P, _I, _P],
         "curdle_launch_floor": [_P],
@@ -305,11 +305,6 @@ def ladder_glv_group(m: int, w: int) -> int:
 # (chip_smoke.py `decompress` phase, `group_sweep`, on an NVIDIA H100 80GB
 # HBM3 at 700 W; PERF.md).
 DECOMPRESS_GROUP_LIMITS = (4096, 8192)
-# Whether a group keeps the square root's 16 odd powers in registers (the
-# chain unrolled, every digit a constant) or in local memory: registers, 4
-# to 8 % faster up to 8,192 lanes, level at 31,753 (the same sweep, which
-# times both).
-DECOMPRESS_UNROLLED = True
 
 
 def decompress_group(m: int) -> int:
@@ -561,21 +556,15 @@ def scalar_mul_w1(points, scalars, group: Optional[int] = None):
 # ---------------------------------------------------------------------------
 
 
-def decompress(x: torch.Tensor, sign: torch.Tensor, group: Optional[int] = None,
-               unrolled: Optional[bool] = None):
+def decompress(x: torch.Tensor, sign: torch.Tensor, group: Optional[int] = None):
     """Launch `decompress_kernel`: x (24, n) canonical limbs, sign (n,) the
     lexicographic-largest flags -> xm, ym (24, n) Montgomery and ok (n,)
     bool (the root existed). group: threads a lane (default
-    `decompress_group(n)`); unrolled: a group's odd powers in registers
-    (default DECOMPRESS_UNROLLED; G > 1 only). The kernel of
-    `ops.compress._decompress_device`."""
+    `decompress_group(n)`). The kernel of `ops.compress._decompress_device`."""
     x = x.contiguous()
     n = x.shape[-1]
     group = decompress_group(n) if group is None else group
     check_group("decompress", group)
-    unrolled = DECOMPRESS_UNROLLED and group > 1 if unrolled is None else unrolled
-    if unrolled and group == 1:
-        raise ValueError("decompress: the unrolled chain is built for groups of 2 and 4 only")
     check_tensor("decompress x", x, (24, n))
     sign = _lane_row("decompress sign", sign, n, torch.bool)
     xm, ym = (torch.empty((24, n), dtype=torch.int32, device=x.device) for _ in range(2))
@@ -583,7 +572,7 @@ def decompress(x: torch.Tensor, sign: torch.Tensor, group: Optional[int] = None,
     if n:
         with torch.cuda.device(x.device):
             rc = lib().curdle_decompress(
-                x.data_ptr(), sign.data_ptr(), xm.data_ptr(), ym.data_ptr(), ok.data_ptr(), group, int(unrolled),
+                x.data_ptr(), sign.data_ptr(), xm.data_ptr(), ym.data_ptr(), ok.data_ptr(), group,
                 launch_blocks(n, group, FIELD_THREADS), n, stream_ptr(),
             )
         check_launch("decompress", rc)

@@ -191,7 +191,7 @@ def test_decompress_dispatches_cuda_tensors_to_the_kernel(stand_in):
     args = stand_in["curdle_decompress"]
     assert args[-2] == N and args[-1] == 0
     group = cuda_g1.decompress_group(N)
-    assert args[5:8] == (group, int(cuda_g1.DECOMPRESS_UNROLLED and group > 1), -(-N * group // 128))
+    assert args[5:7] == (group, -(-N * group // 128))
     assert [a.shape for a in (xm, ym, ok)] == [(24, N), (24, N), (N,)]
     assert (xm.dtype, ok.dtype) == (torch.int32, torch.bool)
     assert args[2:5] == (xm.data_ptr(), ym.data_ptr(), ok.data_ptr())
@@ -207,9 +207,9 @@ def test_decompress_launches_the_group_it_is_given(stand_in, group):
     cuda_g1.decompress(_flag_cuda(from_reference(x, "cpu")), from_reference(signs, "cpu"), group=group)
     assert cuda_g1.launch_counts["decompress"] == before + 1
     args = stand_in["curdle_decompress"]
-    assert args[5] == group and args[7] == cuda_g1.launch_blocks(N, group, cuda_g1.FIELD_THREADS)
-    assert args[7] * cuda_g1.FIELD_THREADS >= N * group > (args[7] - 1) * cuda_g1.FIELD_THREADS
-    assert args[8] == N
+    assert args[5] == group and args[6] == cuda_g1.launch_blocks(N, group, cuda_g1.FIELD_THREADS)
+    assert args[6] * cuda_g1.FIELD_THREADS >= N * group > (args[6] - 1) * cuda_g1.FIELD_THREADS
+    assert args[7] == N
 
 
 def test_decompress_refuses_a_group_not_built(stand_in):
@@ -218,8 +218,6 @@ def test_decompress_refuses_a_group_not_built(stand_in):
     for group in (3, 0, 8):
         with pytest.raises(ValueError, match="group must be one of"):
             cuda_g1.decompress(_flag_cuda(from_reference(x, "cpu")), from_reference(signs, "cpu"), group=group)
-    with pytest.raises(ValueError, match="groups of 2 and 4"):
-        cuda_g1.decompress(_flag_cuda(from_reference(x, "cpu")), from_reference(signs, "cpu"), group=1, unrolled=True)
     assert cuda_g1.launch_counts == before and "curdle_decompress" not in stand_in
 
 
@@ -280,7 +278,7 @@ def test_wrappers_refuse_cpu_tensors():
 
 _P, _I = cuda_g1.ctypes.c_void_p, cuda_g1.ctypes.c_int
 ENTRY_DECLS = {
-    "curdle_decompress": [_P] * 5 + [_I, _I, _I, _I, _P],
+    "curdle_decompress": [_P] * 5 + [_I, _I, _I, _P],
     "curdle_compress": [_P] * 4 + [_I, _P],
     "curdle_glv_records": [_P] * 5 + [_I, _P],
 }
@@ -343,7 +341,7 @@ def test_constants_are_the_fields():
         exp = (exp << s) + d
     assert exp == (p + 1) // 4
     assert sum(shift) == 375 and sum(1 for d in digit[1:] if d) == 66  # the kernel's comment
-    # the same chain as constant expressions, for the unrolled group chain
+    # the same chain as constant expressions, for the groups' unrolled chain
     for name, want in (("sqrt_shift", shift), ("sqrt_digit", digit)):
         body = re.search(name + r"\(int s\) \{\s*constexpr uint8_t v\[FQ_SQRT_STEPS\] = \{([^}]*)\}", src).group(1)
         assert [int(v) for v in re.findall(r"\d+", body)] == want, name
@@ -378,16 +376,15 @@ def test_decompress_kernel_equals_plain(card):
 @pytest.mark.parametrize("group", [1, 2, 4])
 def test_decompress_kernel_equals_plain_at_every_group(card, group):
     """64 lanes with the edge lanes (x = 0 of both signs, non-residues,
-    p - 1) at each group, local-memory and register odd powers: bit for bit
-    the plain version, one launch a call."""
+    p - 1) at each group: bit for bit the plain version, one launch a
+    call."""
     x, signs = field_inputs(0x64, 64)
     xd, sd = from_reference(x, card), from_reference(signs, card)
     want = tcompress._decompress_plain(xd, sd)
-    for unrolled in (False, True) if group > 1 else (False,):
-        before = cuda_g1.launch_counts["decompress"]
-        got = cuda_g1.decompress(xd, sd, group=group, unrolled=unrolled)
-        assert cuda_g1.launch_counts["decompress"] == before + 1
-        assert all(torch.equal(a, b) for a, b in zip(got, want)), (group, unrolled)
+    before = cuda_g1.launch_counts["decompress"]
+    got = cuda_g1.decompress(xd, sd, group=group)
+    assert cuda_g1.launch_counts["decompress"] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want)), group
 
 
 @pytest.mark.gpu

@@ -24,7 +24,9 @@ in every ladder a group of `group` threads (1, 2 or 4, `GROUPS`) serves a
 lane and runs each formula's independent products side by side
 (csrc/g1.cuh); `point_group(m, body)`, `ladder_group(m)`,
 `ladder_w1_group(m)` and `ladder_glv_group(m, w)` pick it from the width, and
-the wrappers compute the grid (`launch_blocks`).
+the wrappers compute the grid (`launch_blocks`). The tracker decode's kernel
+splits each Montgomery product of a lane over its group instead
+(csrc/fq_group.cuh), picked by `decompress_group(m)`.
 
 Every wrapper launches on `torch.cuda.current_stream()`, allocates its outputs
 with `torch.empty`, raises on a non-zero return, and adds one to its entry in

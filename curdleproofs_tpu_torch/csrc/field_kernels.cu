@@ -114,11 +114,11 @@ __device__ __forceinline__ bool fq_is_largest(const Fq& y) {
 // 31,753 lanes (31,744 trackers and 9 edge lanes) on an H100. Each lane is
 // one dependent chain of those 462 operations, so with one thread a lane
 // (G = 1) the chain's latency sets the time below about one warp a
-// scheduler (0.38 ms from 1,024 to 16,384 lanes), and the issue of its two
-// warps a scheduler at 31,753 (0.55 ms). decompress_kernel<G> for G = 2 and
-// 4 splits every product of a lane over G threads (fq_group.cuh): G times
-// the warps, each thread's part of a product 12 / G words wide. The split
-// costs shuffles, register moves and the carry resolution, about as many
+// scheduler (0.38 ms from 1,024 to 16,384 lanes), and the instruction rate
+// of its two warps a scheduler at 31,753 (0.55 ms). decompress_kernel<G> for
+// G = 2 and 4 splits every product of a lane over G threads (fq_group.cuh):
+// G times the warps, each thread's part of a product 12 / G words wide. The
+// split costs shuffles, register moves and the carry resolution, about as many
 // instructions a thread as one thread's whole product, so it shortens a
 // lane's time only where one thread a lane leaves the schedulers idle: G = 4
 // is 18 % faster at 1,024 and 4,096 lanes, G = 1 twice as fast at 31,753.

@@ -29,9 +29,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              identity base, two equal bases, negative k1, for ladder_w1 also
              r+2 (its last add doubles), all three coordinates and the host's
              P*s; the three field kernels at 64 lanes: decompress with x = 0
-             of both signs, three x without a root, x = p - 1, at every
-             thread group G = 1, 2, 4, compress on its output, glv_records
-             with identity lanes and mixed neg1) — integer equality
+             of both signs, three x without a root, x = p - 1, compress on
+             its output, glv_records with identity lanes and mixed neg1) —
+             integer equality
   host_native  msm_prep_batch at n = 2^16, c = 13, L = 512 array-equal to the
              numpy chain, and both times
   msm_2e16   msm() at n = 2^16: bases P_i = (a + i*d + i^2*e)*G, uniform scalars;
@@ -77,13 +77,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              upload, kernel and readback, unpack_points), the kernel by CUDA
              events, and the kernel path against the host C decoder at
              1,024, 4,096, 8,192 and 31,744 points in turns, with the size
-             from which the kernel path wins; outside the counted run, X1's
-             thread-group sweep (`group_sweep`: 1,024, 4,096, 8,192, 16,384
-             and 31,753 lanes, every group, CUDA-event
-             and CUDA-graph ms, warps a SM, equal to G = 1, the group the
-             wrapper picks and the fastest) and ptxas's registers, stack
-             and spills of every decompress_kernel<G> (a build started in
-             the background when the run begins)
+             from which the kernel path wins
   whisk_lockstep_prove  the same 64 proofs by the lockstep prover (64 x
              128-lane segmented MSMs, merged scales and folds): byte for byte
              the thread prover's; ladder_glv_w3, ladder_w3 and point_op
@@ -133,8 +127,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              8,192 and 16,383 lanes, and each GLV ladder alone at 124, 1,024,
              4,096, 6,144, 8,192, 12,288 and 16,383 lanes, at every group the
              same way; decompress at the 31,744 tracker points with the edge
-             lanes added (also at every group, each against the plain
-             version, with CUDA-graph ms), compress on its output,
+             lanes added (also by CUDA graph), compress on its output,
              glv_records at 2^16 points with identity lanes (beside its
              plain chain in turns), and an empty kernel by CUDA graph beside
              the three (`launch_floor_ms`, the fixed cost of a launch); and the
@@ -237,10 +230,6 @@ FIELD_CU = "curdleproofs_tpu_torch/csrc/field_kernels.cu"
 MULS_PER_SQR = 12 * 13 // 2 + 12 * 12 + 12
 # the tracker decode against the host C decoder at these widths
 DECODE_SIZES = (1024, 4096, 8192, 31744)
-# X1's thread-group sweep: these widths of tracker x (the widest with the
-# edge lanes: the kernels line's 31,753), every group built
-DECOMPRESS_SWEEP_WIDTHS = (1024, 4096, 8192, 16384, 31753)
-SMS = 132  # streaming multiprocessors of an H100 SXM
 # PyTorch ops on CUDA tensors that one call of `_glv_stream_packed` or of
 # `batch_decompress` may run: uploads, allocations, views, the readback
 # (the plain chains ran 699 and 383,902)
@@ -704,7 +693,6 @@ def phase_kernels(bases, dev, rng, m_ladder, route_shape):
             bad.append(k)
         if dev.type == "cuda" and fld[k]["launched"] != 1:
             fail(f"{k}: the wrapper launched its kernel {fld[k]['launched']} times, not once")
-    bad += [f"decompress[G={g}]" for g, e in fld["decompress_max_abs_err_by_group"].items() if e != 0]
     if not 0 < lad["negative_k1_lanes"] < lad["m"]:
         bad.append("ladder lanes lack a negative or a positive k1")
     if not (out["scan_sel"]["collision_flagged"] and out["scan_sel_split1"]["collision_flagged"]):
@@ -1391,7 +1379,6 @@ def phase_decompress(pres, proofs, dev):
     x, signs, _ = ocompress.parse_encodings(encs)
     x_d, s_d = from_reference(x, dev), from_reference(signs, dev)
     kernel_ms = cuda_ms(lambda: ocompress._decompress_device(x_d, s_d), 5) if dev.type == "cuda" else None
-    group_sweep = decompress_group_sweep(x, signs, dev) if dev.type == "cuda" else None
     sizes = [k for k in DECODE_SIZES if k <= len(encs)] or [len(encs)]
     crossing = {}
     for k in sizes:
@@ -1406,9 +1393,7 @@ def phase_decompress(pres, proofs, dev):
             "device_s": dev_ms / 1e3, "host_c_s": host_ms / 1e3, "host_threads": min(8, os.cpu_count() or 1),
             "spans_s": _spans(rep, ("decompress.parse", "decompress.upload", "decompress.device",
                                     "decompress.unpack")),
-            "kernel_ms": kernel_ms, "group": cuda_g1.decompress_group(len(encs)), "group_sweep": group_sweep,
-            "ptxas": finish_ptxas(PTXAS_FIELD) if dev.type == "cuda" else None,
-            "launches": launches, "kernel_path_vs_host_c_s": crossing,
+            "kernel_ms": kernel_ms, "launches": launches, "kernel_path_vs_host_c_s": crossing,
             "kernel_path_wins_from": next(
                 (k for k in sizes if all(crossing[str(j)]["kernel_path_wins"] for j in sizes if j >= k)), None),
         }
@@ -1417,45 +1402,7 @@ def phase_decompress(pres, proofs, dev):
         fail(f"decompress: the card's decode equals the host C decoder's {equal}, round trip {round_trip}")
     if dev.type == "cuda" and not (launches["decompress"] and launches["compress"]):
         fail(f"decompress: the decode or the encode never launched its kernel: {launches}")
-    if group_sweep:
-        bad = [f"{w}[G={g}]" for w, v in group_sweep.items() for g, r in v["by_group"].items() if not r["equal"]]
-        if bad:
-            fail(f"decompress: thread groups disagree with one thread a lane: {bad}")
     return launches, encs
-
-
-def decompress_group_sweep(x, signs, dev) -> dict:
-    """X1 at DECOMPRESS_SWEEP_WIDTHS lanes of the tracker x (the widest with
-    field_edge_lanes() added) at every built (group, registers) variant:
-    CUDA-event ms and CUDA-graph ms of one launch, warps a SM, the outputs
-    equal to one thread a lane's (itself held against the plain version in
-    the kernels line), the group decompress_group picks and the fastest by
-    graph ms. Outside the counted runs."""
-    x_e, s_e = field_edge_lanes()
-    x_all = np.concatenate([x, x_e], axis=1)
-    s_all = np.concatenate([signs, s_e])
-    out = {}
-    for k in DECOMPRESS_SWEEP_WIDTHS:
-        if k > x_all.shape[1]:
-            continue
-        xk = from_reference(np.ascontiguousarray(x_all[:, :k]), dev)
-        sk = from_reference(np.ascontiguousarray(s_all[:k]), dev)
-        ref = cuda_g1.decompress(xk, sk, group=1)
-        by_group = {}
-        for g in cuda_g1.GROUPS:
-            fn = lambda g=g: cuda_g1.decompress(xk, sk, group=g)
-            by_group[str(g)] = {
-                "equal": max_abs_err(list(fn()), list(ref)) == 0,
-                "ms": cuda_ms(fn, 5),
-                "graph_ms": graph_ms(fn, 5),
-                "warps_a_sm": k * g / 32 / SMS,
-            }
-        out[str(k)] = {
-            "by_group": by_group,
-            "picked": str(cuda_g1.decompress_group(k)),
-            "fastest": min(by_group, key=lambda v: by_group[v]["graph_ms"]),
-        }
-    return out
 
 
 def field_edge_lanes():
@@ -1508,14 +1455,9 @@ def field_edge_checks(bases, dev, m: int = 64) -> dict:
         "compress": max_abs_err(list(got_c), list(ocompress._compress_plain(dec))),
         "glv_records": max_abs_err(got_r, omsm._glv_stream_packed_plain(ap.x, ap.y, ap.inf, neg1)),
     }
-    by_group = {}
-    if dev.type == "cuda":  # X1 at every thread group
-        for g in cuda_g1.GROUPS:
-            by_group[str(g)] = max_abs_err(list(cuda_g1.decompress(x_d, s_d, group=g)), list(want))
     return {k: {"max_abs_err": v, "launched": launched[k]} for k, v in out.items()} | {
         "lanes": {"decompress": x.shape[1], "glv_records": m},
         "ok_lanes": int(to_reference(got[2]).sum()),
-        "decompress_max_abs_err_by_group": by_group,
     }
 
 
@@ -2488,15 +2430,7 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_
                "montgomery_squares_a_lane": dec_squares, "montgomery_products_a_lane": dec_products},
     )
     if dev.type == "cuda":
-        # every thread group at the same lanes, each against the plain version
-        want_dec = plain_out["decompress"]
-        by_group = {}
-        for g in cuda_g1.GROUPS:
-            fn = lambda g=g: cuda_g1.decompress(x_dec, s_dec, group=g)
-            by_group[str(g)] = {"max_abs_err": max_abs_err(list(fn()), list(want_dec)),
-                                "ms": cuda_ms(fn, 5), "graph_ms": graph_ms(fn, 5)}
-        rows[-1].update(group=cuda_g1.decompress_group(m_dec),
-                        graph_ms=graph_ms(lambda: ocompress._decompress_device(x_dec, s_dec), 5), by_group=by_group)
+        rows[-1]["graph_ms"] = graph_ms(lambda: ocompress._decompress_device(x_dec, s_dec), 5)
     dec_pts = og.APoints(dec[0], dec[1], torch.zeros(m_dec, dtype=torch.bool, device=dev))
     row(
         "compress",
@@ -2570,8 +2504,6 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_
     if not all(oracle.values()):
         fail(f"ladders disagree with the discrete-log oracle at the main path's shapes: {oracle}")
     bad = [r["name"] for r in rows if r["max_abs_err"] != 0]
-    bad += [f"decompress[G={g}]" for r in rows if r["name"] == "decompress"
-            for g, v in r.get("by_group", {}).items() if v["max_abs_err"] != 0]
     bad += [f"gather_u32[{k}]" for k, v in stitch.items() if v["max_abs_err"] != 0]
     bad += [f"gather_u32[n={k}]" for k, v in layout_probe.items() if v["max_abs_err"] != 0]
     if bad:
@@ -2851,41 +2783,6 @@ def sass_counts(so: str) -> dict:
     return {readable[k]: {"instructions": sum(c.values()), "top": dict(c.most_common(8))} for k, c in ops.items()}
 
 
-PTXAS_FIELD = {}  # the background ptxas build of field_kernels.cu: its process and directory
-
-
-def start_ptxas(unit: str, into: dict) -> None:
-    """Start nvcc -Xptxas -v on one source in a temporary directory, beside
-    the run (registers, stack frame and spills of every instantiation)."""
-    import atexit
-    import shutil
-
-    tmp = tempfile.mkdtemp()
-    cmd = cuda_g1.nvcc_command(unit, f"{tmp}/out.so", extra=("-Xptxas", "-v"))
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    into.update(dir=tmp, proc=proc)
-
-    def stop():  # a run that fails before reading it leaves no compiler behind
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-        shutil.rmtree(tmp, ignore_errors=True)
-
-    atexit.register(stop)
-
-
-def finish_ptxas(handle: dict) -> dict:
-    """What start_ptxas's build said, by kernel; waits for it."""
-    import shutil
-
-    if "proc" not in handle:
-        return {}
-    text, _ = handle["proc"].communicate()
-    shutil.rmtree(handle.pop("dir"), ignore_errors=True)
-    handle.pop("proc")
-    return ptxas_stats(text)
-
-
 def ptxas_report() -> int:
     """What ptxas says of each kernel (registers, stack frame in local memory,
     spills) and the machine instructions of each function. Needs nvcc, no
@@ -2968,7 +2865,6 @@ def main() -> int:
         t0 = time.perf_counter()
         cuda_g1.lib()
         load_s = time.perf_counter() - t0
-        start_ptxas("field_kernels.cu", PTXAS_FIELD)
         if not host_native.available():
             fail("no C compiler: the native host library cannot be built")
         host_native.lib()

@@ -26,7 +26,6 @@
 #include <stdint.h>
 
 #include "fq.cuh"
-#include "fq_group.cuh"
 
 namespace curdle {
 
@@ -112,127 +111,40 @@ __device__ __forceinline__ bool fq_is_largest(const Fq& y) {
 // and 84 products a lane (the chain above, to_mont, x^3, y^2, from_mont)
 // against 24 words read and 48 written, 0.215 ms at the batched verifier's
 // 31,753 lanes (31,744 trackers and 9 edge lanes) on an H100. Each lane is
-// one dependent chain of those 462 operations, so with one thread a lane
-// (G = 1) the chain's latency sets the time below about one warp a
-// scheduler (0.38 ms from 1,024 to 16,384 lanes), and the instruction rate
-// of its two warps a scheduler at 31,753 (0.55 ms). decompress_kernel<G> for
-// G = 2 and 4 splits every product of a lane over G threads (fq_group.cuh):
-// G times the warps, each thread's part of a product 12 / G words wide. The
-// split costs shuffles, register moves and the carry resolution, about as many
-// instructions a thread as one thread's whole product, so it shortens a
-// lane's time only where one thread a lane leaves the schedulers idle: G = 4
-// is 18 % faster at 1,024 and 4,096 lanes, G = 1 twice as fast at 31,753.
-// The wrapper picks G by width (ops/cuda_g1.py::decompress_group, from
-// chip_smoke.py's sweep). Group threads load and store only their own limb
-// rows: a warp covers 32 / G lanes, so each row it touches is a part of a
-// line, which is immaterial here (the bytes bound is 0.003 ms).
+// one dependent chain of those 462 operations, so below about one warp a
+// scheduler the chain's latency sets the time (0.38 ms from 1,024 to 16,384
+// lanes) and at 31,753 the instruction rate of two warps a scheduler
+// (0.55 ms). Splitting each product over a group of 2 or 4 threads costs
+// about as many instructions a thread as one thread's whole product: it was
+// 18 % faster at 1,024-4,096 lanes and twice as slow at 31,753, where the
+// batched verifier runs, so one thread a lane stays (PERF.md).
 // ---------------------------------------------------------------------------
-
-// The square-root chain of FQ_SQRT_SHIFT / FQ_SQRT_DIGIT as constant
-// expressions, for the groups' unrolled chain
-// (tests/test_torch_field_kernels.py checks the copies are equal).
-__host__ __device__ constexpr int sqrt_shift(int s) {
-  constexpr uint8_t v[FQ_SQRT_STEPS] = {
-      0, 13, 7, 4, 6, 7, 5, 5, 3, 6, 6, 3, 8, 3, 6, 6, 3, 8, 7, 5, 6, 6, 4, 8, 4, 7, 9, 5, 2, 7, 7,
-      6, 5, 5, 5, 8, 7, 9, 5, 3, 8, 3, 7, 9, 6, 6, 5, 5, 4, 3, 8, 7, 5, 5, 4, 4, 7, 5, 5, 5, 5, 5, 5,
-      5, 4, 6, 5};
-  return v[s];
-}
-__host__ __device__ constexpr int sqrt_digit(int s) {
-  constexpr uint8_t v[FQ_SQRT_STEPS] = {
-      13, 17, 15, 5, 7, 23, 31, 25, 5, 13, 9, 3, 27, 5, 15, 27, 1, 13, 23, 11, 13, 29, 9, 29, 13, 23,
-      19, 25, 3, 5, 9, 23, 29, 19, 19, 13, 21, 15, 13, 3, 15, 3, 9, 15, 21, 31, 31, 31, 13, 3, 21,
-      31, 31, 31, 15, 7, 31, 29, 31, 31, 31, 31, 31, 31, 13, 21, 11};
-  return v[s];
-}
-
-// Steps S.. of the chain with every digit a compile-time constant.
-template <int G, int S>
-__device__ __forceinline__ void sqrt_steps_unrolled(FqG<G>& y, const FqG<G> (&odd)[FQ_SQRT_ODD_POWERS]) {
-  if constexpr (S < FQ_SQRT_STEPS) {
-    constexpr int shift = sqrt_shift(S), digit = sqrt_digit(S);
-#pragma unroll 1
-    for (int b = 0; b < shift; ++b) y = fq_sqr_g<G>(y);
-    if constexpr (digit != 0) y = fq_mul_g<G>(y, odd[digit >> 1]);
-    sqrt_steps_unrolled<G, S + 1>(y, odd);
-  }
-}
-
-// y = rhs^((p+1)/4) on a group, the chain unrolled so that every digit is a
-// constant and the 16 odd powers of rhs stay in registers (4 to 8 % faster
-// than indexing them in local memory, as G = 1 does; chip_smoke.py timed
-// both, PERF.md).
-template <int G>
-__device__ __forceinline__ FqG<G> sqrt_chain_g(const FqG<G>& rhs) {
-  FqG<G> odd[FQ_SQRT_ODD_POWERS];
-  odd[0] = rhs;
-  const FqG<G> rhs2 = fq_sqr_g<G>(rhs);
-#pragma unroll
-  for (int j = 1; j < FQ_SQRT_ODD_POWERS; ++j) odd[j] = fq_mul_g<G>(odd[j - 1], rhs2);
-  FqG<G> y = odd[sqrt_digit(0) >> 1];
-  sqrt_steps_unrolled<G, 1>(y, odd);
-  return y;
-}
-
-// Canonical y > (p - 1) / 2 on a group: y - ((p - 1) / 2 + 1) does not borrow.
-template <int G>
-__device__ __forceinline__ bool fq_is_largest_g(const FqG<G>& y) {
-  return !fq_below_g<G>(y, FQ_HALF_P1);
-}
-
-// G = 1: one thread a lane (the kernel of the first port, unchanged); G = 2,
-// 4: G threads a lane, thread t of the grid serving lane t / G, the threads
-// past the last lane computing it again and storing nothing, so every warp
-// stays whole for the shuffles.
-template <int G>
 __global__ void __launch_bounds__(FIELD_THREADS)
 decompress_kernel(const uint32_t* __restrict__ x, const uint8_t* __restrict__ sign,
                   uint32_t* __restrict__ xm_out, uint32_t* __restrict__ ym_out,
                   uint8_t* __restrict__ ok, int n) {
-  if constexpr (G == 1) {
-    const int i = blockIdx.x * FIELD_THREADS + threadIdx.x;
-    if (i >= n) return;
-    const size_t stride = (size_t)n;
-    const Fq xm = fq_mul(fq_load(x + i, stride), fq_const(FQ_R2));
-    const Fq rhs = fq_add(fq_mul(fq_sqr(xm), xm), fq_const(FQ_FOUR_MONT));
-    // the odd powers of rhs in local memory, indexed by the chain's digits
-    Fq odd[FQ_SQRT_ODD_POWERS];
-    odd[0] = rhs;
-    const Fq rhs2 = fq_sqr(rhs);
+  const int i = blockIdx.x * FIELD_THREADS + threadIdx.x;
+  if (i >= n) return;
+  const size_t stride = (size_t)n;
+  const Fq xm = fq_mul(fq_load(x + i, stride), fq_const(FQ_R2));
+  const Fq rhs = fq_add(fq_mul(fq_sqr(xm), xm), fq_const(FQ_FOUR_MONT));
+  // the odd powers of rhs in local memory, indexed by the chain's digits
+  Fq odd[FQ_SQRT_ODD_POWERS];
+  odd[0] = rhs;
+  const Fq rhs2 = fq_sqr(rhs);
 #pragma unroll 1
-    for (int j = 1; j < FQ_SQRT_ODD_POWERS; ++j) odd[j] = fq_mul(odd[j - 1], rhs2);
-    Fq y = odd[FQ_SQRT_DIGIT[0] >> 1];
+  for (int j = 1; j < FQ_SQRT_ODD_POWERS; ++j) odd[j] = fq_mul(odd[j - 1], rhs2);
+  Fq y = odd[FQ_SQRT_DIGIT[0] >> 1];
 #pragma unroll 1
-    for (int s = 1; s < FQ_SQRT_STEPS; ++s) {
+  for (int s = 1; s < FQ_SQRT_STEPS; ++s) {
 #pragma unroll 1
-      for (int b = 0; b < FQ_SQRT_SHIFT[s]; ++b) y = fq_sqr(y);
-      if (FQ_SQRT_DIGIT[s]) y = fq_mul(y, odd[FQ_SQRT_DIGIT[s] >> 1]);
-    }
-    ok[i] = fq_equal(fq_sqr(y), rhs) ? 1 : 0;
-    if (fq_is_largest(fq_from_mont(y)) != (sign[i] != 0)) y = fq_neg(y);
-    fq_store(xm_out + i, stride, xm);
-    fq_store(ym_out + i, stride, y);
-  } else {
-    const long long t = (long long)blockIdx.x * FIELD_THREADS + threadIdx.x;
-    const bool live = t / G < n;
-    const int i = live ? (int)(t / G) : n - 1;
-    const size_t stride = (size_t)n;
-    const FqG<G> xm = fq_mul_g<G>(fq_load_g<G>(x + i, stride), grp_slice<G>(FQ_R2));
-    const FqG<G> rhs = fq_add_g<G>(fq_mul_g<G>(fq_sqr_g<G>(xm), xm), grp_slice<G>(FQ_FOUR_MONT));
-    FqG<G> y = sqrt_chain_g<G>(rhs);
-    const bool good = fq_equal_g<G>(fq_sqr_g<G>(y), rhs);
-    // the negation computed by every group and selected, so that no
-    // collective runs under a condition that differs between groups
-    const bool flip = fq_is_largest_g<G>(fq_from_mont_g<G>(y)) != (sign[i] != 0);
-    const FqG<G> yn = fq_neg_g<G>(y);
-#pragma unroll
-    for (int j = 0; j < FqG<G>::K; ++j) y.v[j] = flip ? yn.v[j] : y.v[j];
-    if (live) {
-      fq_store_g<G>(xm_out + i, stride, xm);
-      fq_store_g<G>(ym_out + i, stride, y);
-      if (grp_rank<G>() == 0) ok[i] = good ? 1 : 0;
-    }
+    for (int b = 0; b < FQ_SQRT_SHIFT[s]; ++b) y = fq_sqr(y);
+    if (FQ_SQRT_DIGIT[s]) y = fq_mul(y, odd[FQ_SQRT_DIGIT[s] >> 1]);
   }
+  ok[i] = fq_equal(fq_sqr(y), rhs) ? 1 : 0;
+  if (fq_is_largest(fq_from_mont(y)) != (sign[i] != 0)) y = fq_neg(y);
+  fq_store(xm_out + i, stride, xm);
+  fq_store(ym_out + i, stride, y);
 }
 
 // ---------------------------------------------------------------------------
@@ -295,28 +207,19 @@ __global__ void launch_floor_kernel() {}
 
 inline int field_blocks(int n) { return (n + FIELD_THREADS - 1) / FIELD_THREADS; }
 
-template <int G>
-int launch_decompress(const void* x, const void* sign, void* xm, void* ym, void* ok, int blocks, int n,
-                      cudaStream_t stream) {
-  decompress_kernel<G><<<blocks, FIELD_THREADS, 0, stream>>>(
-      (const uint32_t*)x, (const uint8_t*)sign, (uint32_t*)xm, (uint32_t*)ym, (uint8_t*)ok, n);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace curdle
 
 using namespace curdle;
 
 extern "C" {
 
-// x (24, n) canonical, sign (n,) bool -> xm, ym (24, n) Montgomery, ok (n,)
-// bool, with `group` threads a lane (1, 2 or 4) on `blocks` blocks of
-// FIELD_THREADS.
-int curdle_decompress(const void* x, const void* sign, void* xm, void* ym, void* ok, int group,
-                      int blocks, int n, void* stream) {
-  if (n < 1 || blocks < 1 || !(group == 1 || group == 2 || group == 4)) return (int)cudaErrorInvalidValue;
-  const auto launch = group == 1 ? launch_decompress<1> : group == 2 ? launch_decompress<2> : launch_decompress<4>;
-  return launch(x, sign, xm, ym, ok, blocks, n, (cudaStream_t)stream);
+// x (24, n) canonical, sign (n,) bool -> xm, ym (24, n) Montgomery, ok (n,) bool.
+int curdle_decompress(const void* x, const void* sign, void* xm, void* ym, void* ok, int n,
+                      void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  decompress_kernel<<<field_blocks(n), FIELD_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)x, (const uint8_t*)sign, (uint32_t*)xm, (uint32_t*)ym, (uint8_t*)ok, n);
+  return (int)cudaGetLastError();
 }
 
 // One launch of the empty kernel.

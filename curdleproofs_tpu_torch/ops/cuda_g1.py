@@ -24,9 +24,7 @@ in every ladder a group of `group` threads (1, 2 or 4, `GROUPS`) serves a
 lane and runs each formula's independent products side by side
 (csrc/g1.cuh); `point_group(m, body)`, `ladder_group(m)`,
 `ladder_w1_group(m)` and `ladder_glv_group(m, w)` pick it from the width, and
-the wrappers compute the grid (`launch_blocks`). The tracker decode's kernel
-splits each Montgomery product of a lane over its group instead
-(csrc/fq_group.cuh), picked by `decompress_group(m)`.
+the wrappers compute the grid (`launch_blocks`).
 
 Every wrapper launches on `torch.cuda.current_stream()`, allocates its outputs
 with `torch.empty`, raises on a non-zero return, and adds one to its entry in
@@ -57,7 +55,7 @@ from curdleproofs_tpu_torch.ops.glv import BETA as _GLV_BETA
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-HEADERS = ("fq.cuh", "fq_group.cuh", "g1.cuh")
+HEADERS = ("fq.cuh", "g1.cuh")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -86,7 +84,7 @@ ENTRY_POINTS = {
         "curdle_rowwise_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
     "field_kernels.cu": {
-        "curdle_decompress": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "curdle_decompress": [_P, _P, _P, _P, _P, _I, _P],
         "curdle_compress": [_P, _P, _P, _P, _I, _P],
         "curdle_glv_records": [_P, _P, _P, _P, _P, _I, _P],
         "curdle_launch_floor": [_P],
@@ -120,7 +118,6 @@ GLV_W = int(os.environ.get("CURDLEPROOFS_GLV_W", "3"))
 GROUPS = (1, 2, 4)
 POINT_THREADS = 128
 LADDER_THREADS = 32
-FIELD_THREADS = 128
 
 _lock = threading.Lock()
 _lib: Optional[types.SimpleNamespace] = None
@@ -293,25 +290,6 @@ def ladder_w1_group(m: int) -> int:
 def ladder_glv_group(m: int, w: int) -> int:
     """Threads a lane for the GLV ladder of window width w at m lanes."""
     four, two = GLV_GROUP_LIMITS[w]
-    return 4 if m <= four else 2 if m <= two else 1
-
-
-# decompress: (widest m for G = 4, widest m for G = 2); G = 1 beyond. A
-# lane is one chain of 462 dependent products, which a group splits product
-# by product (csrc/fq_group.cuh). The split adds shuffles, moves and a carry
-# resolution, about as many instructions a thread as one thread's whole
-# product (a square too: the group's is the product), and a warp's time
-# follows its instructions at every width: G = 4 wins while one thread a
-# lane leaves the schedulers short of warps, by 18 % at 1,024 and 4,096
-# lanes; G = 2 by 3 % at 8,192; G = 1 is twice as fast at 31,753
-# (chip_smoke.py `decompress` phase, `group_sweep`, on an NVIDIA H100 80GB
-# HBM3 at 700 W; PERF.md).
-DECOMPRESS_GROUP_LIMITS = (4096, 8192)
-
-
-def decompress_group(m: int) -> int:
-    """Threads a lane for `decompress` at m lanes."""
-    four, two = DECOMPRESS_GROUP_LIMITS
     return 4 if m <= four else 2 if m <= two else 1
 
 
@@ -558,15 +536,12 @@ def scalar_mul_w1(points, scalars, group: Optional[int] = None):
 # ---------------------------------------------------------------------------
 
 
-def decompress(x: torch.Tensor, sign: torch.Tensor, group: Optional[int] = None):
+def decompress(x: torch.Tensor, sign: torch.Tensor):
     """Launch `decompress_kernel`: x (24, n) canonical limbs, sign (n,) the
     lexicographic-largest flags -> xm, ym (24, n) Montgomery and ok (n,)
-    bool (the root existed). group: threads a lane (default
-    `decompress_group(n)`). The kernel of `ops.compress._decompress_device`."""
+    bool (the root existed). The kernel of `ops.compress._decompress_device`."""
     x = x.contiguous()
     n = x.shape[-1]
-    group = decompress_group(n) if group is None else group
-    check_group("decompress", group)
     check_tensor("decompress x", x, (24, n))
     sign = _lane_row("decompress sign", sign, n, torch.bool)
     xm, ym = (torch.empty((24, n), dtype=torch.int32, device=x.device) for _ in range(2))
@@ -574,8 +549,7 @@ def decompress(x: torch.Tensor, sign: torch.Tensor, group: Optional[int] = None)
     if n:
         with torch.cuda.device(x.device):
             rc = lib().curdle_decompress(
-                x.data_ptr(), sign.data_ptr(), xm.data_ptr(), ym.data_ptr(), ok.data_ptr(), group,
-                launch_blocks(n, group, FIELD_THREADS), n, stream_ptr(),
+                x.data_ptr(), sign.data_ptr(), xm.data_ptr(), ym.data_ptr(), ok.data_ptr(), n, stream_ptr()
             )
         check_launch("decompress", rc)
         launch_counts["decompress"] += 1

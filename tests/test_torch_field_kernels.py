@@ -50,15 +50,15 @@ def _nonresidue_xs(k):
     return out
 
 
-def field_inputs(seed=0xF1E1D, n=N):
-    """x (24, n) canonical limbs and sign flags (n,): curve points with both
+def field_inputs(seed=0xF1E1D):
+    """x (24, N) canonical limbs and sign flags (N,): curve points with both
     signs, x = 0 (the lanes that carry infinity), non-residues, p - 1 and
     uniform x."""
     rng = np.random.default_rng(seed)
     pts = curve.mul_host_batch([G1()] * 10, [Fr(int.from_bytes(rng.bytes(32), "little") % FR_MOD) for _ in range(10)])
     xs = [p.x for p in pts] + [0, 0] + _nonresidue_xs(3) + [FQ_MOD - 1]
-    xs += [int.from_bytes(rng.bytes(48), "little") % FQ_MOD for _ in range(n - len(xs))]
-    signs = rng.integers(0, 2, n).astype(bool)
+    xs += [int.from_bytes(rng.bytes(48), "little") % FQ_MOD for _ in range(N - len(xs))]
+    signs = rng.integers(0, 2, N).astype(bool)
     signs[10], signs[11] = False, True
     return ints_to_limbs(xs, 24), signs
 
@@ -190,46 +190,9 @@ def test_decompress_dispatches_cuda_tensors_to_the_kernel(stand_in):
     assert cuda_g1.launch_counts["decompress"] == before + 1
     args = stand_in["curdle_decompress"]
     assert args[-2] == N and args[-1] == 0
-    group = cuda_g1.decompress_group(N)
-    assert args[5:7] == (group, -(-N * group // 128))
     assert [a.shape for a in (xm, ym, ok)] == [(24, N), (24, N), (N,)]
     assert (xm.dtype, ok.dtype) == (torch.int32, torch.bool)
     assert args[2:5] == (xm.data_ptr(), ym.data_ptr(), ok.data_ptr())
-
-
-@pytest.mark.parametrize("group", cuda_g1.GROUPS)
-def test_decompress_launches_the_group_it_is_given(stand_in, group):
-    """An explicit group reaches the entry point, with the grid that gives
-    each lane its group of threads (a thread past the last lane computes it
-    again), one launch a call."""
-    x, signs = field_inputs()
-    before = cuda_g1.launch_counts["decompress"]
-    cuda_g1.decompress(_flag_cuda(from_reference(x, "cpu")), from_reference(signs, "cpu"), group=group)
-    assert cuda_g1.launch_counts["decompress"] == before + 1
-    args = stand_in["curdle_decompress"]
-    assert args[5] == group and args[6] == cuda_g1.launch_blocks(N, group, cuda_g1.FIELD_THREADS)
-    assert args[6] * cuda_g1.FIELD_THREADS >= N * group > (args[6] - 1) * cuda_g1.FIELD_THREADS
-    assert args[7] == N
-
-
-def test_decompress_refuses_a_group_not_built(stand_in):
-    x, signs = field_inputs()
-    before = dict(cuda_g1.launch_counts)
-    for group in (3, 0, 8):
-        with pytest.raises(ValueError, match="group must be one of"):
-            cuda_g1.decompress(_flag_cuda(from_reference(x, "cpu")), from_reference(signs, "cpu"), group=group)
-    assert cuda_g1.launch_counts == before and "curdle_decompress" not in stand_in
-
-
-@pytest.mark.parametrize("m", [1, 64, 1024, 4096, 8192, 8193, 16384, 31753, 32768, 32769, 1 << 20])
-def test_decompress_group_by_width(m):
-    """The group the wrapper picks at every width: built, from the table,
-    never wider as the width grows."""
-    four, two = cuda_g1.DECOMPRESS_GROUP_LIMITS
-    g = cuda_g1.decompress_group(m)
-    assert g in cuda_g1.GROUPS
-    assert g == (4 if m <= four else 2 if m <= two else 1)
-    assert all(cuda_g1.decompress_group(k) >= g for k in range(1, m + 1, max(1, m // 97)))
 
 
 def test_compress_dispatches_cuda_tensors_to_the_kernel(stand_in):
@@ -278,7 +241,7 @@ def test_wrappers_refuse_cpu_tensors():
 
 _P, _I = cuda_g1.ctypes.c_void_p, cuda_g1.ctypes.c_int
 ENTRY_DECLS = {
-    "curdle_decompress": [_P] * 5 + [_I, _I, _I, _P],
+    "curdle_decompress": [_P] * 5 + [_I, _P],
     "curdle_compress": [_P] * 4 + [_I, _P],
     "curdle_glv_records": [_P] * 5 + [_I, _P],
 }
@@ -341,10 +304,6 @@ def test_constants_are_the_fields():
         exp = (exp << s) + d
     assert exp == (p + 1) // 4
     assert sum(shift) == 375 and sum(1 for d in digit[1:] if d) == 66  # the kernel's comment
-    # the same chain as constant expressions, for the groups' unrolled chain
-    for name, want in (("sqrt_shift", shift), ("sqrt_digit", digit)):
-        body = re.search(name + r"\(int s\) \{\s*constexpr uint8_t v\[FQ_SQRT_STEPS\] = \{([^}]*)\}", src).group(1)
-        assert [int(v) for v in re.findall(r"\d+", body)] == want, name
     # the header's p and Montgomery one, which the kernels share with the others
     fq = (cuda_g1.CSRC_DIR / "fq.cuh").read_text()
     assert _literal(fq, "FQ_P") == p and _literal(fq, "FQ_ONE") == R % p
@@ -370,21 +329,6 @@ def test_decompress_kernel_equals_plain(card):
     got = tcompress._decompress_device(xd, sd)
     assert cuda_g1.launch_counts["decompress"] == before + 1
     assert all(torch.equal(a, b) for a, b in zip(got, tcompress._decompress_plain(xd, sd)))
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("group", [1, 2, 4])
-def test_decompress_kernel_equals_plain_at_every_group(card, group):
-    """64 lanes with the edge lanes (x = 0 of both signs, non-residues,
-    p - 1) at each group: bit for bit the plain version, one launch a
-    call."""
-    x, signs = field_inputs(0x64, 64)
-    xd, sd = from_reference(x, card), from_reference(signs, card)
-    want = tcompress._decompress_plain(xd, sd)
-    before = cuda_g1.launch_counts["decompress"]
-    got = cuda_g1.decompress(xd, sd, group=group)
-    assert cuda_g1.launch_counts["decompress"] == before + 1
-    assert all(torch.equal(a, b) for a, b in zip(got, want)), group
 
 
 @pytest.mark.gpu

@@ -207,25 +207,29 @@ def _sorted_window_partials(packed, order, e):
     """Device pipeline for one window chunk: packed (49, n) point records,
     order (wb, n) int32 digit-sort permutations, e (wb, B-1) int32 bucket
     boundary ranks in the sorted order (-1 = empty prefix). Returns (total
-    JPoints (24,), bucket-weighted boundary sums (24, wb))."""
-    g = ogather.gather_u32_shared(packed, order)  # (49, wb, n)
-    P = oscan.inclusive_scan(og.lift(APoints(g[:24], g[24:48], g[48] != 0)))
-    bg = ogather.gather_u32(torch.cat([P.x, P.y, P.z], dim=0), e)  # (72, wb, B-1)
-    bsums = oscan.tree_reduce_hybrid(_split72(bg))  # (24, wb)
-    total = JPoints(P.x[:, 0, -1], P.y[:, 0, -1], P.z[:, 0, -1])
+    JPoints (24,), bucket-weighted boundary sums (24, wb)). One span a
+    step: `msm.window.gather`, `.scan`, `.reduce`."""
+    with timed("msm.window.gather"):
+        g = ogather.gather_u32_shared(packed, order)  # (49, wb, n)
+    with timed("msm.window.scan"):
+        P = oscan.inclusive_scan(og.lift(APoints(g[:24], g[24:48], g[48] != 0)))
+    with timed("msm.window.reduce"):
+        bg = ogather.gather_u32(torch.cat([P.x, P.y, P.z], dim=0), e)  # (72, wb, B-1)
+        bsums = oscan.tree_reduce_hybrid(_split72(bg))  # (24, wb)
+        total = JPoints(P.x[:, 0, -1], P.y[:, 0, -1], P.z[:, 0, -1])
     return total, bsums
 
 
 def _window_partials(packed, digits, c: int):
     """`_sorted_window_partials` for digits (wb, n) on the device: the sort
-    and the bucket boundaries are computed there."""
+    and the bucket boundaries are computed there (span `msm.window.sort`)."""
     B = 1 << c
-    sd, order = torch.sort(digits, dim=-1, stable=True)
-    ts = torch.arange(B - 1, dtype=digits.dtype, device=digits.device)
-    e = torch.searchsorted(sd, ts.expand(digits.shape[0], -1).contiguous(), right=True) - 1
-    return _sorted_window_partials(
-        packed, order.to(torch.int32).contiguous(), e.to(torch.int32).contiguous()
-    )
+    with timed("msm.window.sort"):
+        sd, order = torch.sort(digits, dim=-1, stable=True)
+        ts = torch.arange(B - 1, dtype=digits.dtype, device=digits.device)
+        e = torch.searchsorted(sd, ts.expand(digits.shape[0], -1).contiguous(), right=True) - 1
+        order, e = order.to(torch.int32).contiguous(), e.to(torch.int32).contiguous()
+    return _sorted_window_partials(packed, order, e)
 
 
 def _pad_pow2_inputs(points: APoints, scalars: torch.Tensor, min_width: int = 32):
@@ -267,19 +271,25 @@ def msm_pippenger(
 
 
 def _msm_pippenger_impl(points, scalars, c=None, window_batch=None) -> G1:
-    points, scalars = _pad_pow2_inputs(points, scalars)
-    n = points.x.shape[-1]
-    c = c or pick_window(n)
-    W = -(-FR_BITS // c)
-    if window_batch is None:
-        window_batch = _sorted_window_batch(n, W)
-    digits = extract_digits(scalars, c)
-    packed = _pack_records(points)
-    pending = [
-        _window_partials(packed, digits[w0 : w0 + window_batch], c)
-        for w0 in range(0, W, window_batch)
-    ]
-    return _combine_packed(_pack_results(pending[0][0], [b for _, b in pending]), c, W)
+    """Spans: `msm.pippenger.prep` (the pad, the digits, the records),
+    `msm.pippenger.windows` (every chunk's device work enqueued, and the
+    results packed), then `_combine_packed`'s."""
+    with timed("msm.pippenger.prep"):
+        points, scalars = _pad_pow2_inputs(points, scalars)
+        n = points.x.shape[-1]
+        c = c or pick_window(n)
+        W = -(-FR_BITS // c)
+        if window_batch is None:
+            window_batch = _sorted_window_batch(n, W)
+        digits = extract_digits(scalars, c)
+        packed = _pack_records(points)
+    with timed("msm.pippenger.windows"):
+        pending = [
+            _window_partials(packed, digits[w0 : w0 + window_batch], c)
+            for w0 in range(0, W, window_batch)
+        ]
+        res = _pack_results(pending[0][0], [b for _, b in pending])
+    return _combine_packed(res, c, W)
 
 
 def msm_pippenger_hostsort(
@@ -599,10 +609,15 @@ def _pack_results(total: JPoints, bsums: Sequence[JPoints]) -> torch.Tensor:
 
 
 def _combine_packed(res: torch.Tensor, c: int, W: int) -> G1:
-    """Read a `_pack_results` tensor back and combine the windows on the host."""
-    arr = to_reference(res)
-    pts = og.jpoints_to_host(JPoints(arr[:24], arr[24:48], arr[48:]))
-    return _combine_windows_host(pts[0], pts[1 : 1 + W], c, W)
+    """Read a `_pack_results` tensor back and combine the windows on the host.
+    Spans: `msm.readback` (the host waits for the card's queue to drain, then
+    the copy home) and `msm.combine` (the points to host G1, the windows'
+    Horner combine)."""
+    with timed("msm.readback"):
+        arr = to_reference(res)
+    with timed("msm.combine"):
+        pts = og.jpoints_to_host(JPoints(arr[:24], arr[24:48], arr[48:]))
+        return _combine_windows_host(pts[0], pts[1 : 1 + W], c, W)
 
 
 _ROUTE_POOL: Optional[ThreadPoolExecutor] = None

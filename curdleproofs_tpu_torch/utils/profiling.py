@@ -7,6 +7,13 @@ here is host time around the call, which for a GPU call includes whatever
 synchronisation the call itself does (the MSM ends in a readback, so its
 time is complete).
 
+`timed(name)` is the one span primitive. It always records into the
+registry; while a `torch.profiler` is recording it also opens a
+`record_function(name)` around the block, so the span lands in the same
+trace as the kernels, on the profiler's host clock. With no profiler running
+it reads one flag and never enters `record_function`, which costs
+microseconds a span even with nothing recording.
+
 `device_trace(logdir)` is the counterpart of the JAX package's hook of the
 same name: a `torch.profiler` trace of a region, over the CPU and, where a
 card is present, over CUDA, written into `logdir` as a Chrome trace (open it
@@ -23,6 +30,8 @@ import time
 from collections import defaultdict
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+from torch.autograd import profiler as _profiler
 
 
 @dataclass
@@ -50,13 +59,10 @@ class MetricsRegistry:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._stats: Dict[str, _Stat] = defaultdict(_Stat)
-        self.enabled = True
 
     def record(
         self, name: str, seconds: float, items: int = 0, point_ops: int = 0
     ) -> None:
-        if not self.enabled:
-            return
         with self._lock:
             s = self._stats[name]
             s.calls += 1
@@ -84,13 +90,30 @@ def metrics_report() -> Dict[str, dict]:
     return _registry.report()
 
 
-@contextlib.contextmanager
-def timed(name: str, items: int = 0, point_ops: int = 0) -> Iterator[None]:
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        _registry.record(name, time.perf_counter() - t0, items, point_ops)
+class timed:
+    """`with timed(name, items, point_ops):` records the block's host seconds
+    under `name`, and is a profiler span of that name while a profiler
+    records (`torch.autograd.profiler._is_profiler_enabled`, the flag the
+    profiler sets on start and clears on stop)."""
+
+    __slots__ = ("name", "items", "point_ops", "t0", "span")
+
+    def __init__(self, name: str, items: int = 0, point_ops: int = 0) -> None:
+        self.name = name
+        self.items = items
+        self.point_ops = point_ops
+        self.span = None
+
+    def __enter__(self) -> None:
+        if _profiler._is_profiler_enabled:
+            self.span = _profiler.record_function(self.name)
+            self.span.__enter__()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc) -> None:
+        _registry.record(self.name, time.perf_counter() - self.t0, self.items, self.point_ops)
+        if self.span is not None:
+            self.span.__exit__(*exc)
 
 
 @contextlib.contextmanager

@@ -14,9 +14,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
   device     card name and power limit (nvidia-smi), kernel build time, the
              native host library's build time and OpenMP threads
-  kernels    the twelve kernels vs their plain versions at small shapes with
+  kernels    the thirteen kernels vs their plain versions at small shapes with
              edge lanes (point_op and the four ladders at every thread group
-             G = 1, 2, 4; identity, P+P, P+(-P), a forced p == q collision in
+             G = 1, 2, 4; point_strided's scan schedule at 3 x 256 lanes, six
+             levels, at every group; identity, P+P, P+(-P), a forced p == q collision in
              scan_sel at split 1 and at the default split, the two equal as
              points; scan_full the same, with a lane of one point at every
              step; empty and repeated selection slots, out-of-range gather
@@ -45,6 +46,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              first 128 == msm_host, wall times and spans (route solve, native
              prep, device, combine), beside the direct gather in turns
   msm_sort   msm(method="pippenger") and msm(method="hostsort") at n = 4096
+             (point_strided, point_op and gather_u32 launched)
   msm_ladder msm() at n = 2^14 - 1 through method="auto" (the widest MSM of
              the ladder branch): == the discrete-log oracle, first 128 ==
              msm_host, wall times and the decompose / pack / device /
@@ -84,7 +86,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              launched; both walls
   entry      parallel.dryrun.entry(), the single-device entry: one
              Pippenger window-partials step at n = 1024, c = 8 on the card
-             (gather_u32 and point_op launched); the total is the sum of the
+             (gather_u32, point_strided and point_op launched); the total is the sum of the
              points and the MSM recombined from the 32 bucket sums equals
              msm_host; warm walls
   sharded_world1  the sharded MSM (parallel/) in a world of one process,
@@ -95,7 +97,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              msm()); then REPS walls of each in turns with msm() on the same
              inputs (median, min, max) and the sharded spans (pack, host prep,
              device, collective, combine): the overhead at devices = 1;
-             scan_sel, gather_u32, point_op and the GLV ladder launched
+             scan_sel, gather_u32, point_op, point_strided (the sort
+             engine's scan) and the GLV ladder launched
   sharded_ranks4  gather_u32 and scan_sel at one rank's shapes (2^15 GLV
              lanes, its first window chunk) against their plain versions;
              then four processes spawned on the one card, joined over gloo
@@ -122,7 +125,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
              msm() launches it (recorded in that phase's counted call), each body at
              every thread group in turns, bit-equal to plain, with CUDA-graph
              device times, bounds, launches per msm() and the group the
-             wrapper picks (`group_sweep`); ladder_w3 alone at the two vector
+             wrapper picks (`group_sweep`); point_strided: one chunk of the
+             sort engines' prefix scan at 8 windows of 2^19 lanes (27
+             launches), bit-equal to its plain twin and to lift ->
+             inclusive_scan -> cat, beside that composition's time, and each
+             launch alone by CUDA graph beside point_op at its width
+             (`per_launch`, `ms_by_kind`); ladder_w3 alone at the two vector
              widths, ladder_w1 at 124, 1,024, 2,048, 3,072, 4,096, 6,144,
              8,192 and 16,383 lanes, and each GLV ladder alone at 124, 1,024,
              4,096, 6,144, 8,192, 12,288 and 16,383 lanes, at every group the
@@ -538,6 +546,10 @@ def phase_kernels(bases, dev, rng, m_ladder, route_shape):
                 "plain_ms": wall_ms(want, dev)[1],
             }
     out["point_op"] = point
+    # point_strided: the prefix scan's schedule over 3 x 256 of the q records
+    # (a doubling at lanes 2, 3, identities at 5 and 7)
+    strided = strided_edge_check(aq) if dev.type == "cuda" else {}
+    out["point_strided"] = strided
 
     # gather: random tables, indices from -3 to N + 2, ragged M, per-window
     # and shared tables, point records and Jacobian triples, in both layouts
@@ -682,6 +694,8 @@ def phase_kernels(bases, dev, rng, m_ladder, route_shape):
     bad = [k for k in ("gather_u32", "scan_sel", "scan_sel_split1", "scan_full", "scan_full_split1")
            if not out[k]["equal"]]
     bad += [f"point_op[{k}]" for k, v in point.items() if not v["equal"]]
+    if strided and not strided["equal"]:
+        bad.append("point_strided")
     for k, v in lad.items():
         if isinstance(v, dict):
             if not (v["equal"] and v["host_check"]):
@@ -755,7 +769,7 @@ def phase_entry(dev):
     if not (shapes and total_ok and msm_ok):
         fail(f"entry: shapes {shapes}, total {total_ok}, MSM {msm_ok}")
     if dev.type == "cuda":
-        missing = [k for k in ("gather_u32", "point_op") if not launches[k]]
+        missing = [k for k in ("gather_u32", "point_strided", "point_op") if not launches[k]]
         if missing:
             fail(f"entry: {missing} never launched")
     return launches
@@ -1009,10 +1023,9 @@ def phase_msm_sort(bases, scalars, coef, dev):
     for method in ("pippenger", "hostsort"):
         if not out[method]["dlog_check"]:
             fail(f"msm(method={method!r}) result is wrong")
-        if dev.type == "cuda" and not (
-            out[method]["launches_per_msm"].get("point_op") and out[method]["launches_per_msm"].get("gather_u32")
-        ):
-            fail(f"msm(method={method!r}) did not go through point_op and gather_u32")
+        used = out[method]["launches_per_msm"]
+        if dev.type == "cuda" and not (used.get("point_strided") and used.get("point_op") and used.get("gather_u32")):
+            fail(f"msm(method={method!r}) did not go through point_strided, point_op and gather_u32")
     return _counts()
 
 
@@ -1621,7 +1634,8 @@ def phase_sharded_world1(bases, scalars, coef, dev, n_ladder, n_sort):
     if not _sel_engaged(spans):
         fail(f"sharded_world1: the stream engine did not take the sel path: {spans}")
     if dev.type == "cuda":
-        missing = [k for k in ("scan_sel", "gather_u32", "point_op", f"ladder_glv_w{cuda_g1.GLV_W}") if not launches[k]]
+        missing = [k for k in ("scan_sel", "gather_u32", "point_op", "point_strided", f"ladder_glv_w{cuda_g1.GLV_W}")
+                   if not launches[k]]
         if missing:
             fail(f"sharded_world1: {missing} never launched")
     return launches
@@ -1696,7 +1710,8 @@ def phase_sharded_ranks4(bases, scalars, coef, dev, n_ladder, n_sort, knobs):
     if not all(sel):
         fail(f"sharded_ranks4: the stream engine did not take the sel path on every rank: {sel}")
     if dev.type == "cuda":
-        missing = [k for k in ("scan_sel", "gather_u32", "point_op", f"ladder_glv_w{cuda_g1.GLV_W}") if not launches[k]]
+        missing = [k for k in ("scan_sel", "gather_u32", "point_op", "point_strided", f"ladder_glv_w{cuda_g1.GLV_W}")
+                   if not launches[k]]
         if missing:
             fail(f"sharded_ranks4: {missing} never launched")
     return launches
@@ -1705,6 +1720,68 @@ def phase_sharded_ranks4(bases, scalars, coef, dev, n_ladder, n_sort, knobs):
 # ---------------------------------------------------------------------------
 # phase: each kernel at the main path's shapes, timed, beside its bound
 # ---------------------------------------------------------------------------
+
+
+def strided_edge_check(aq) -> dict:
+    """The prefix scan's schedule (`ops.scan.scan_schedule`) on the card over
+    3 x 256 lanes of the records of aq, SMALL_WIDTH lowered to 4 (six levels
+    above the fixed-width steps), at every thread group and at the picked
+    ones, against the plain twin."""
+    rec = torch.cat([aq.x, aq.y, aq.inf.unsqueeze(0).to(torch.int32)])[:, : 3 * 256]
+    rec = rec.reshape(49, 3, 256).contiguous()
+    saved, oscan.SMALL_WIDTH = oscan.SMALL_WIDTH, 4
+    try:
+        want = oscan.inclusive_scan_levels_ref(rec)
+        by_group = {
+            str(g): torch.equal(oscan._run_schedule(rec, lambda b, st, g=g: cuda_g1.point_strided(b, st, g)), want)
+            for g in cuda_g1.GROUPS
+        }
+        by_group["picked"] = torch.equal(oscan.inclusive_scan_records(rec), want)
+    finally:
+        oscan.SMALL_WIDTH = saved
+    return {"equal": all(by_group.values()), "equal_by_group": by_group, "rows": 3, "lanes": 256, "small_width": 4}
+
+
+def scan_launch_times(rec, table) -> dict:
+    """Each launch of the prefix scan over records rec (49, rows, n) alone,
+    by CUDA graph, on the buffers one run of the schedule leaves, beside
+    `point_op` (the contiguous point kernel, the same group) at the launch's
+    width on columns of table, the scan's (72, rows, n) output; and the
+    sums by kind (a level up, a fixed-width step, a level down)."""
+    rows = rec.shape[1]
+    kept = []
+    oscan._run_schedule(rec, lambda bufs, st: (cuda_g1.point_strided(bufs, st), kept.append((bufs, st))))
+    names = {oscan.UP: "up", oscan.ANY: "step", oscan.DOWN: "down"}
+    k4_ms, per_launch = {}, []
+    for bufs, st in kept:
+        m = rows * st.lanes
+        if m not in k4_ms:
+            a, b = (og.JPoints(*(table[24 * k : 24 * (k + 1)].reshape(24, -1)[:, o : o + m].contiguous()
+                                 for k in range(3))) for o in (0, m))
+            k4_ms[m] = graph_ms(lambda a=a, b=b: cuda_g1.jadd(a, b), 5)
+        per_launch.append({"kind": names[st.kind], "lanes": st.lanes, "group": cuda_g1.point_group(m, "jadd"),
+                           "ms": graph_ms(lambda b=bufs, s_=st: cuda_g1.point_strided(b, s_), 5),
+                           "point_op_ms": k4_ms[m]})
+    out = {"per_launch": per_launch}
+    for key in ("ms", "point_op_ms"):
+        out[f"{key}_by_kind"] = {k: sum(r[key] for r in per_launch if r["kind"] == k) for k in names.values()}
+    return out
+
+
+def scan_least_bytes(launches, rows: int) -> int:
+    """Bytes the launches of `ops.scan.scan_schedule` move at least over
+    `rows` rows: every column a launch reads, once (49 words a record, 72 a
+    point; a level down's copied prefix is the column its p reads a lane
+    on), and every column it writes (72 words)."""
+    total = 0
+    for st in launches:
+        cols = {}
+        for op in (st.p, st.q, st.copy):
+            if op is not None and op.lo < st.lanes:
+                cols.setdefault(op.buf, []).append(op.off + op.step * np.arange(op.lo, st.lanes))
+        total += sum((49 if b == oscan.RECORDS else 72) * np.unique(np.concatenate(c)).size for b, c in cols.items())
+        total += 72 * st.lanes * (1 + (st.copy_out is not None))
+    return 4 * rows * total
 
 
 def glv_ladder_products(s1, s2, w: int) -> int:
@@ -2325,6 +2402,41 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_
         group=cuda_g1.point_group(m),
         group_sweep=point_group_sweep(widths, launches_by_path, flat(bl), flat(lo), packed, dev, timer),
     )
+    # point_strided: the sort engines' prefix scan (ops/scan.py::scan_schedule)
+    # over one chunk of gathered records at the benchmark's shape, 8 windows
+    # of 2^19 lanes (8 x 256 on the CPU), against its plain twin and against
+    # the composition it replaced (lift, inclusive_scan, cat); each launch
+    # alone by CUDA graph beside the contiguous point kernel at its width
+    s_rows, s_width = (8, 1 << 19) if dev.type == "cuda" else (8, 256)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    s_idx = torch.randint(0, packed.shape[-1], (s_rows, s_width), generator=gen, device=dev, dtype=torch.int32)
+    s_rec = ogather.gather_u32_shared(packed, s_idx)
+    s_launches = oscan.scan_schedule(s_width, oscan.SMALL_WIDTH)[1]
+    s_adds = s_rows * sum(st.lanes for st in s_launches)
+
+    def old_scan():
+        P = oscan.inclusive_scan(og.lift(og.APoints(s_rec[:24], s_rec[24:48], s_rec[48] != 0)))
+        return torch.cat([P.x, P.y, P.z], dim=0)
+
+    s_table = row(
+        "point_strided",
+        "curdleproofs_tpu/ops/scan.py:123",
+        lambda: oscan.inclusive_scan_records(s_rec),
+        lambda: oscan.inclusive_scan_levels_ref(s_rec),
+        ops=s_adds * MONT_PER_OP["jadd"] * MULS_PER_MONT,
+        nbytes=scan_least_bytes(s_launches, s_rows),
+        shape={"rows": s_rows, "lanes": s_width, "small_width": oscan.SMALL_WIDTH, "launches": len(s_launches),
+               "complete_adds": s_adds},
+    )
+    old_table, old_ms = wall_ms(old_scan, dev)
+    rows[-1].update(
+        composition_max_abs_err=max_abs_err(s_table, old_table),
+        composition_ms=timer(old_scan, 3) if dev.type == "cuda" else old_ms,
+    )
+    del old_table
+    if dev.type == "cuda":
+        rows[-1].update(scan_launch_times(s_rec, s_table))
+    del s_rec, s_table
     # the four ladders: the GLV pair at the width of the widest ladder msm(),
     # the Fr ladders at the width of the large vector ops
     lanes = {"ladder_glv_w3": n_glv, "ladder_glv_w4": n_glv, "ladder_w3": n_vec, "ladder_w1": n_vec}
@@ -2504,6 +2616,7 @@ def phase_kernel_times(bases, scalars, dev, launches, by_phase, n_glv, n_vec, n_
     if not all(oracle.values()):
         fail(f"ladders disagree with the discrete-log oracle at the main path's shapes: {oracle}")
     bad = [r["name"] for r in rows if r["max_abs_err"] != 0]
+    bad += [f"{r['name']}[against lift, inclusive_scan, cat]" for r in rows if r.get("composition_max_abs_err")]
     bad += [f"gather_u32[{k}]" for k, v in stitch.items() if v["max_abs_err"] != 0]
     bad += [f"gather_u32[n={k}]" for k, v in layout_probe.items() if v["max_abs_err"] != 0]
     if bad:

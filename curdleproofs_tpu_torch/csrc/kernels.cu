@@ -410,6 +410,212 @@ const PointKernel POINT_KERNELS[3][3] = {
     {point_kernel<JMADD, 1>, point_kernel<JMADD, 2>, point_kernel<JMADD, 4>},
 };
 
+// ---------------------------------------------------------------------------
+// point_kernel_strided: the point kernel's complete add, reading and writing
+// by offset and stride, for the level schedule of the prefix scan
+// (ops/scan.py::scan_schedule).
+//
+// The scan was the point kernel surrounded by copies: every level split its
+// input into even and odd lanes, made them contiguous, shifted the prefixes
+// by one with a concatenation, and interleaved the halves back with a stack,
+// and every fixed-width step rolled the vector and selected the identity
+// into its head. Those copies took twice the point kernel's time on the card
+// and most of the host's time to enqueue. Here each launch finds its
+// operands where they lie: lane j of row r of an operand is the column
+// off + j * step of its buffer, limb rows `limb` containers apart, rows
+// `row` apart. So a level reads the even and odd lanes of the level below in
+// place, the shift is an offset of -1 or -d, and the interleave is a store
+// at step 2 beside a copy at step 2.
+//
+//   out[j] = jadd(p[j], q[j]), complete, with jac_add_g<G, true>
+//   copy_out[j] = copy[j] where copy is given
+//
+// An operand lane below `lo` is the identity as the package encodes it,
+// (1, 1, 0) in raw limbs, and the whole add runs on it: an add with an
+// identity operand returns the other operand's triple or, where both are
+// the identity, the identity's, so every coordinate is the plain scan's. A
+// record operand (49 rows: x, y, the infinity word) is lifted as it is read:
+// z = 0 where the word is set, else one in Montgomery form (FQ_ONE, in
+// constant memory).
+//
+// The add is the point kernel's, but a launch moves more bytes a lane: a
+// level down reads a prefix, an even lane of the level below and the prefix
+// it copies, and writes two columns. At the scan's widths the kernel runs
+// with few warps a scheduler and waits on its loads, so its time follows
+// the bytes it moves and its memory instructions (on the H100 a level down
+// with one 4-byte access a limb row took twice the contiguous point
+// kernel's time at its width). So there are three bodies, and the caller
+// names one a launch (ops/scan.py, `Launch.kind`):
+//   UP    p and q are columns 2j and 2j + 1 of one buffer (a level up): one
+//         8-byte load a limb row gives both operands;
+//   DOWN  p is the prefix at j - 1 (identity at j = 0), copy the prefix at
+//         j, out and copy_out columns 2j and 2j + 1 of one buffer (a level
+//         down): the copy is p of the lane G threads on, by warp shuffles
+//         (loaded only at a warp's last group and a row's last lane), q
+//         read as the first of an 8-byte pair, out and copy stored as one
+//         8-byte pair a limb row;
+//   ANY   any views and no copy (the fixed-width steps).
+// The entry point refuses a launch whose views do not have its body's
+// layout (`body_fits`).
+//
+// The caller guarantees that no launch writes a column that it reads, so
+// the loads of one thread never meet another thread's stores. Threads,
+// groups and the tail are the point kernel's: thread t serves lane t / G of
+// the rows * lanes lanes, row-major.
+// ---------------------------------------------------------------------------
+
+struct PointView {
+  uint32_t* base;  // null: no operand
+  long long limb;  // containers between limb rows
+  long long row;   // containers between rows
+  long long off;   // column of lane 0
+  long long step;  // columns between lanes
+  long long lo;    // lanes below take the identity
+  long long records;  // 49 rows (x, y, infinity word) instead of 72
+};
+constexpr int POINT_VIEW_WORDS = 7;
+enum StridedBody { ANY = 0, UP = 1, DOWN = 2 };
+
+__device__ __forceinline__ Jac jac_identity() {
+  Jac r = jac_zero();
+  r.x.v[0] = 1u;
+  r.y.v[0] = 1u;
+  return r;
+}
+
+__device__ __forceinline__ long long view_at(const PointView& v, int r, int j) {
+  return (long long)r * v.row + v.off + (long long)j * v.step;
+}
+
+__device__ __forceinline__ Jac view_load(const PointView& v, int r, int j) {
+  if (j < v.lo) return jac_identity();
+  const uint32_t* a = v.base + view_at(v, r, j);
+  const size_t s = (size_t)v.limb;
+  Jac p;
+  p.x = fq_load(a, s);
+  p.y = fq_load(a + 24 * s, s);
+  if (v.records) {
+    p.z = a[48 * s] != 0u ? fq_zero() : fq_one();
+  } else {
+    p.z = fq_load(a + 48 * s, s);
+  }
+  return p;
+}
+
+// Lane j of v and, where BOTH, the column after it, one 8-byte load a limb
+// row (v's base, off, limb and row even). A view of step 2 makes them lanes
+// 2j and 2j + 1 of the buffer.
+template <bool BOTH>
+__device__ __forceinline__ void view_load_pair(const PointView& v, int r, int j, Jac& a, Jac& b) {
+  const uint32_t* p = v.base + view_at(v, r, j);
+  const size_t s = (size_t)v.limb;
+  Fq* fa[3] = {&a.x, &a.y, &a.z};
+  Fq* fb[3] = {&b.x, &b.y, &b.z};
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    if (c == 2 && v.records) break;
+#pragma unroll
+    for (int k = 0; k < FQ_WORDS; ++k) {
+      const uint2 lo = *reinterpret_cast<const uint2*>(p + (size_t)(24 * c + 2 * k) * s);
+      const uint2 hi = *reinterpret_cast<const uint2*>(p + (size_t)(24 * c + 2 * k + 1) * s);
+      fa[c]->v[k] = (lo.x & 0xffffu) | (hi.x << 16);
+      if (BOTH) fb[c]->v[k] = (lo.y & 0xffffu) | (hi.y << 16);
+    }
+  }
+  if (v.records) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p + 48 * s);
+    a.z = w.x != 0u ? fq_zero() : fq_one();
+    if (BOTH) b.z = w.y != 0u ? fq_zero() : fq_one();
+  }
+}
+
+template <int G, int BODY>
+__global__ void __launch_bounds__(POINT_THREADS)
+point_kernel_strided(PointView pv, PointView qv, PointView ov, PointView cv, PointView cov, int lanes,
+                     int m) {
+  const int t = blockIdx.x * POINT_THREADS + threadIdx.x;
+  const int lane = t / G, q = t % G;
+  const int i = lane < m ? lane : m - 1;
+  const int r = i / lanes, j = i - r * lanes;
+  Jac a, b;
+  if (BODY == UP) {
+    view_load_pair<true>(pv, r, j, a, b);
+  } else {
+    a = view_load(pv, r, j);
+    if (BODY == DOWN) {
+      view_load_pair<false>(qv, r, j, b, b);
+    } else {
+      b = view_load(qv, r, j);
+    }
+  }
+  const Jac res = jac_add_g<G, true>(a, b, q);
+  const size_t s = (size_t)ov.limb;
+  if (BODY == DOWN) {
+    Jac c;  // the prefix at j: what lane i + 1 read as its p
+    Fq* fc[3] = {&c.x, &c.y, &c.z};
+    const Fq* fa[3] = {&a.x, &a.y, &a.z};
+#pragma unroll
+    for (int co = 0; co < 3; ++co) {
+#pragma unroll
+      for (int k = 0; k < FQ_WORDS; ++k) fc[co]->v[k] = __shfl_down_sync(FULL_WARP, fa[co]->v[k], G);
+    }
+    if (j == lanes - 1 || (int)(threadIdx.x & 31) >= 32 - G) c = view_load(cv, r, j);
+    if (lane >= m) return;
+    uint32_t* o = ov.base + view_at(ov, r, j);
+    const Fq* fr[3] = {&res.x, &res.y, &res.z};
+#pragma unroll
+    for (int co = 0; co < 3; ++co) {
+#pragma unroll
+      for (int k = 0; k < FQ_WORDS; ++k) {
+        if (k % G != q) continue;
+        const size_t row = (size_t)(24 * co + 2 * k);
+        *reinterpret_cast<uint2*>(o + row * s) = make_uint2(fr[co]->v[k] & 0xffffu, fc[co]->v[k] & 0xffffu);
+        *reinterpret_cast<uint2*>(o + (row + 1) * s) = make_uint2(fr[co]->v[k] >> 16, fc[co]->v[k] >> 16);
+      }
+    }
+    return;
+  }
+  if (lane >= m) return;
+  uint32_t* o = ov.base + view_at(ov, r, j);
+  jac_store_share<G>(o, o + 24 * s, o + 48 * s, s, res, q);
+}
+
+using StridedKernel = void (*)(PointView, PointView, PointView, PointView, PointView, int, int);
+
+// [body][0, 1, 2 for G = 1, 2, 4]
+const StridedKernel STRIDED_KERNELS[3][3] = {
+    {point_kernel_strided<1, ANY>, point_kernel_strided<2, ANY>, point_kernel_strided<4, ANY>},
+    {point_kernel_strided<1, UP>, point_kernel_strided<2, UP>, point_kernel_strided<4, UP>},
+    {point_kernel_strided<1, DOWN>, point_kernel_strided<2, DOWN>, point_kernel_strided<4, DOWN>},
+};
+
+// 8-byte pairs of columns at every lane of a step-2 view.
+inline bool view_paired(const PointView& v) {
+  return !((uintptr_t)v.base & 7) && !(v.off & 1) && !(v.limb & 1) && !(v.row & 1) && v.step == 2;
+}
+
+// b is the column after a, lane for lane, in the same rows.
+inline bool next_column(const PointView& a, const PointView& b) {
+  return a.base == b.base && a.limb == b.limb && a.row == b.row && a.records == b.records &&
+         a.step == b.step && b.off == a.off + 1;
+}
+
+// Whether a launch's views have the layout its body reads and writes.
+inline bool body_fits(int body, const PointView& p, const PointView& q, const PointView& o,
+                      const PointView& c, const PointView& co) {
+  switch (body) {
+    case ANY:
+      return !c.base;
+    case UP:
+      return !c.base && view_paired(p) && next_column(p, q) && !p.lo && !q.lo;
+    case DOWN:
+      return c.base && p.step == 1 && next_column(p, c) && p.lo == 1 && !c.lo && view_paired(q) && !q.lo &&
+             view_paired(o) && next_column(o, co);
+    default:
+      return false;
+  }
+}
+
 }  // namespace curdle
 
 using namespace curdle;
@@ -470,6 +676,37 @@ int curdle_point_op(int body, const void* px, const void* py, const void* pz, co
       (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)pz, (const uint32_t*)qx,
       (const uint32_t*)qy, (const uint32_t*)qz, (const int32_t*)qinf, (uint32_t*)ox,
       (uint32_t*)oy, (uint32_t*)oz, m);
+  return (int)cudaGetLastError();
+}
+
+// views: five groups of POINT_VIEW_WORDS 64-bit integers (the fields of
+// PointView, the pointer first) for p, q, out, copy and copy_out, on the
+// host; a copy pointer of 0 means no copy. body: ANY, UP or DOWN, refused
+// where the views do not fit it. rows * lanes lanes, group threads a lane,
+// blocks of POINT_THREADS, at least rows * lanes * group threads.
+int curdle_point_strided(const void* views, int body, int lanes, int rows, int group, int blocks,
+                         void* stream) {
+  const int gi = group == 1 ? 0 : group == 2 ? 1 : group == 4 ? 2 : -1;
+  const long long m = (long long)lanes * rows;
+  if (views == nullptr || gi < 0 || body < ANY || body > DOWN || lanes < 1 || rows < 1 || m > 0x7fffffff ||
+      (long long)blocks * POINT_THREADS < m * group)
+    return (int)cudaErrorInvalidValue;
+  const long long* w = (const long long*)views;
+  PointView v[5];
+  for (int k = 0; k < 5; ++k, w += POINT_VIEW_WORDS) {
+    v[k].base = (uint32_t*)(uintptr_t)w[0];
+    v[k].limb = w[1];
+    v[k].row = w[2];
+    v[k].off = w[3];
+    v[k].step = w[4];
+    v[k].lo = w[5];
+    v[k].records = w[6];
+  }
+  if (!v[0].base || !v[1].base || !v[2].base || (v[3].base && !v[4].base) ||
+      !body_fits(body, v[0], v[1], v[2], v[3], v[4]))
+    return (int)cudaErrorInvalidValue;
+  STRIDED_KERNELS[body][gi]<<<blocks, POINT_THREADS, 0, (cudaStream_t)stream>>>(v[0], v[1], v[2], v[3],
+                                                                               v[4], lanes, (int)m);
   return (int)cudaGetLastError();
 }
 

@@ -27,11 +27,13 @@ lane and runs each formula's independent products side by side
 the wrappers compute the grid (`launch_blocks`).
 
 Every wrapper launches on `torch.cuda.current_stream()`, allocates its outputs
-with `torch.empty`, raises on a non-zero return, and adds one to its entry in
-`launch_counts` where it launches — nowhere else. There is no fallback: a
-CUDA tensor goes to the kernel or the call raises. The plain PyTorch versions
-of the ladders stand in `ops.g1`, whose `scalar_mul*` functions hand CPU
-tensors to them and CUDA tensors to the wrappers here.
+with `torch.empty` (`point_strided`, one step of the prefix scan's level
+schedule, writes into the buffers it is given), raises on a non-zero return,
+and adds one to its entry in `launch_counts` where it launches — nowhere
+else. There is no fallback: a CUDA tensor goes to the kernel or the call
+raises. The plain PyTorch versions of the ladders stand in `ops.g1`, whose
+`scalar_mul*` functions hand CPU tensors to them and CUDA tensors to the
+wrappers here.
 """
 from __future__ import annotations
 
@@ -74,6 +76,7 @@ ENTRY_POINTS = {
         "curdle_scan_full": [_P, _P, _P, _I, _I, _I, _I, _P],
         "curdle_gather_u32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "curdle_point_op": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "curdle_point_strided": [_P, _I, _I, _I, _I, _I, _P],
     },
     "ladders.cu": {
         "curdle_ladder_glv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -96,6 +99,7 @@ KERNEL_NAMES = (
     "scan_full",
     "gather_u32",
     "point_op",
+    "point_strided",
     "ladder_glv_w3",
     "ladder_glv_w4",
     "ladder_w3",
@@ -348,6 +352,54 @@ def point_op(body: str, coords, qinf: Optional[torch.Tensor] = None, group: Opti
     check_launch(f"point_op[{body}]", rc)
     launch_counts["point_op"] += 1
     return tuple(outs)
+
+
+# the fields of csrc/kernels.cu's PointView, in its order
+POINT_VIEW_WORDS = 7
+
+
+def _view_words(bufs, op, lanes: int):
+    """One operand of `point_strided` as the PointView words the C entry
+    point reads; raises where a lane it reads or writes falls outside its
+    buffer (the kernel cannot check)."""
+    if op is None:
+        return [0] * POINT_VIEW_WORDS
+    t = bufs[op.buf]
+    if t.shape[0] not in (49, 72):
+        raise ValueError(f"point_strided: a buffer has {t.shape[0]} rows, not 49 or 72")
+    if op.lo < lanes and (op.off + op.step * op.lo < 0 or op.off + op.step * (lanes - 1) >= t.shape[-1]):
+        raise ValueError(f"point_strided: {op} reaches outside {t.shape[-1]} columns at {lanes} lanes")
+    return [t.data_ptr(), t.stride(0), t.stride(1), op.off, op.step, op.lo, int(t.shape[0] == 49)]
+
+
+def point_strided(bufs, step, group: Optional[int] = None) -> None:
+    """One launch of `point_kernel_strided`, one step of
+    `ops.scan.scan_schedule`: bufs (records (49, wb, n), scratch and table
+    (72, wb, *)) contiguous int32 CUDA tensors, step an `ops.scan.Launch`
+    whose operands name them and whose `kind` names the kernel body (the
+    library refuses views that do not fit it); group: threads a lane
+    (default `point_group(wb * lanes, "jadd")`). Writes in place, returns
+    nothing."""
+    rows = bufs[0].shape[1]
+    m = rows * step.lanes
+    group = point_group(m, "jadd") if group is None else group
+    check_group("point_strided", group)
+    for k, t in enumerate(bufs):
+        check_tensor(f"point_strided buffer {k}", t, (t.shape[0], rows, t.shape[-1]))
+    for op in (step.out, step.copy_out):
+        if op is not None and bufs[op.buf].shape[0] != 72:
+            raise ValueError("point_strided: writes go to 72-row tables, never to the records")
+    words = []
+    for op in (step.p, step.q, step.out, step.copy, step.copy_out):
+        words += _view_words(bufs, op, step.lanes)
+    views = (ctypes.c_longlong * len(words))(*words)
+    with torch.cuda.device(bufs[0].device):
+        rc = lib().curdle_point_strided(
+            ctypes.cast(views, ctypes.c_void_p), step.kind, step.lanes, rows, group,
+            launch_blocks(m, group, POINT_THREADS), stream_ptr(),
+        )
+    check_launch("point_strided", rc)
+    launch_counts["point_strided"] += 1
 
 
 def _flat(arrs):

@@ -208,15 +208,16 @@ def _sorted_window_partials(packed, order, e):
     order (wb, n) int32 digit-sort permutations, e (wb, B-1) int32 bucket
     boundary ranks in the sorted order (-1 = empty prefix). Returns (total
     JPoints (24,), bucket-weighted boundary sums (24, wb)). One span a
-    step: `msm.window.gather`, `.scan`, `.reduce`."""
+    step: `msm.window.gather`, `.scan` (its items: the scan's kernel
+    launches, none on the CPU), `.reduce`."""
     with timed("msm.window.gather"):
         g = ogather.gather_u32_shared(packed, order)  # (49, wb, n)
-    with timed("msm.window.scan"):
-        P = oscan.inclusive_scan(og.lift(APoints(g[:24], g[24:48], g[48] != 0)))
+    with timed("msm.window.scan", items=oscan.scan_launches(g)):
+        P = oscan.inclusive_scan_records(g)  # (72, wb, n)
     with timed("msm.window.reduce"):
-        bg = ogather.gather_u32(torch.cat([P.x, P.y, P.z], dim=0), e)  # (72, wb, B-1)
+        bg = ogather.gather_u32(P, e)  # (72, wb, B-1)
         bsums = oscan.tree_reduce_hybrid(_split72(bg))  # (24, wb)
-        total = JPoints(P.x[:, 0, -1], P.y[:, 0, -1], P.z[:, 0, -1])
+        total = _split72(P[:, 0, -1])
     return total, bsums
 
 

@@ -432,3 +432,131 @@ def test_sharded_stream_in_a_world_of_one_equals_msm(card, tmp_path):
     assert got == msm(pts, scs, device=card)
     assert launched["scan_sel"] >= 1 and launched["gather_u32"] >= 1 and launched["point_op"] >= 1, launched
     assert "msm.sharded.sel" in spans and "msm.sharded.plain" not in spans
+
+
+# ---------------------------------------------------------------------------
+# the prefix scan's level schedule on the strided point kernel
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def scan_pool(card):
+    """(49, 1024) records of real points with two identities and one point
+    twice, to be tiled into scan inputs (tiling repeats points, so the scan
+    meets doublings as the sorted buckets do)."""
+    from curdleproofs_tpu_torch import curve
+
+    rng = random.Random(41)
+    pts = curve.mul_host_batch([G1()] * 1024, [Fr(rng.randrange(1, FR_MOD)) for _ in range(1024)])
+    pts[5] = pts[900] = G1.identity()
+    pts[7] = pts[6]
+    ap = og.pack_points(pts, card)
+    return torch.cat([ap.x, ap.y, ap.inf.unsqueeze(0).to(torch.int32)], dim=0)
+
+
+def _tiled_records(pool, rows, width, seed):
+    gen = torch.Generator(device=pool.device).manual_seed(seed)
+    idx = torch.randint(0, pool.shape[-1], (rows, width), generator=gen, device=pool.device)
+    if width > 1:
+        idx[:, 1] = 5  # the identity at lane 1 of every row
+    idx[-1, 0] = 900  # the last row starts with the identity
+    return pool[:, idx].contiguous()
+
+
+@pytest.mark.parametrize("rows,width", [(8, 1 << 19), (1, 1 << 19)])
+def test_scan_records_at_the_benchmark_shape(scan_pool, rows, width):
+    """The card's schedule (27 launches at 2^19 lanes) against its plain twin
+    on the card, bit for bit on all 72 rows; the groups picked span 1, 2, 4."""
+    from curdleproofs_tpu_torch.ops import scan as oscan
+
+    g = _tiled_records(scan_pool, rows, width, rows)
+    before = cuda_g1.launch_counts["point_strided"]
+    got = oscan.inclusive_scan_records(g)
+    assert cuda_g1.launch_counts["point_strided"] == before + 27 == before + oscan.scan_launches(g)
+    want = oscan.inclusive_scan_levels_ref(g)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("small", [1, 4, 2048])
+@pytest.mark.parametrize("rows,width", [(1, 8), (3, 64), (8, 256), (3, 1), (1, 2)])
+def test_scan_records_narrow(scan_pool, monkeypatch, small, rows, width):
+    """Narrow widths at zero to eight levels above the fixed-width scan (of
+    width one where SMALL_WIDTH is 1), against the twin and against the CPU
+    path (lift, inclusive_scan)."""
+    from curdleproofs_tpu_torch.ops import scan as oscan
+
+    monkeypatch.setattr(oscan, "SMALL_WIDTH", small)
+    g = _tiled_records(scan_pool, rows, width, width)
+    got = oscan.inclusive_scan_records(g)
+    assert torch.equal(got, oscan.inclusive_scan_levels_ref(g))
+    assert torch.equal(got.cpu(), oscan.inclusive_scan_records(g.cpu()))
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("rows,width,small", [(3, 256, 4), (8, 4096, 2048)])
+def test_scan_records_every_group(scan_pool, monkeypatch, group, rows, width, small):
+    """Every launch of the schedule at each thread group, forced, bit-equal
+    to the twin."""
+    import functools
+
+    from curdleproofs_tpu_torch.ops import scan as oscan
+
+    monkeypatch.setattr(oscan, "SMALL_WIDTH", small)
+    g = _tiled_records(scan_pool, rows, width, group)
+    got = oscan._run_schedule(g, functools.partial(cuda_g1.point_strided, group=group))
+    assert torch.equal(got, oscan.inclusive_scan_levels_ref(g))
+
+
+def test_point_strided_refuses_views_that_do_not_fit_the_body(scan_pool, card):
+    """The library refuses a launch whose views lack its body's layout: a
+    level up at an odd column, a level up named DOWN (no copy), a level down
+    named ANY (a copy), a fixed-width step named UP, a body it does not
+    have; the schedule's own launches run."""
+    from curdleproofs_tpu_torch.ops import scan as oscan
+
+    g = _tiled_records(scan_pool, 3, 256, 3)
+    cols, launches = oscan.scan_schedule(256, 4)
+    bufs = (g, torch.zeros((72, 3, cols), dtype=torch.int32, device=card),
+            torch.zeros((72, 3, 256), dtype=torch.int32, device=card))
+    up, down = launches[0], launches[-1]
+    fixed = next(s for s in launches if s.kind == oscan.ANY)
+    R, S = oscan.RECORDS, oscan.SCRATCH
+    odd = oscan.Launch(64, oscan.Operand(R, 1, 2), oscan.Operand(R, 2, 2), oscan.Operand(S, 0), kind=oscan.UP)
+    for bad in (odd, up._replace(kind=oscan.DOWN), down._replace(kind=oscan.ANY), fixed._replace(kind=oscan.UP),
+                up._replace(kind=3)):
+        with pytest.raises(RuntimeError):
+            cuda_g1.point_strided(bufs, bad)
+    for step in launches:
+        cuda_g1.point_strided(bufs, step)
+    torch.cuda.synchronize()
+
+
+def test_sorted_window_partials_equal_the_old_composition(scan_pool, card):
+    """At 2^16 lanes and c = 13: the total and the boundary sums of
+    `_sorted_window_partials` equal lift -> inclusive_scan -> cat -> gather ->
+    tree reduce, the composition it replaced, bit for bit; its span
+    `msm.window.scan` counts the schedule's launches."""
+    from curdleproofs_tpu_torch.ops import msm as omsm
+    from curdleproofs_tpu_torch.ops import scan as oscan
+    from curdleproofs_tpu_torch.utils.profiling import collect
+
+    n, c, wb = 1 << 16, 13, 3
+    gen = torch.Generator(device=card).manual_seed(7)
+    packed = scan_pool[:, torch.randint(0, 1024, (n,), generator=gen, device=card)].contiguous()
+    digits = torch.randint(0, 1 << c, (wb, n), generator=gen, device=card, dtype=torch.int32)
+    digits[1, : n // 2] = 0  # a long empty-bucket run
+    sd, order = torch.sort(digits, dim=-1, stable=True)
+    ts = torch.arange((1 << c) - 1, dtype=digits.dtype, device=card)
+    e = torch.searchsorted(sd, ts.expand(wb, -1).contiguous(), right=True) - 1
+    order, e = order.to(torch.int32).contiguous(), e.to(torch.int32).contiguous()
+    with collect() as reg:
+        total, bsums = omsm._sorted_window_partials(packed, order, e)
+    assert reg.report()["msm.window.scan"]["total_items"] == len(oscan.scan_schedule(n, oscan.SMALL_WIDTH)[1]) == 21
+
+    g = ogather.gather_u32_shared(packed, order)
+    P = oscan.inclusive_scan(og.lift(og.APoints(g[:24], g[24:48], g[48] != 0)))
+    bg = ogather.gather_u32(torch.cat([P.x, P.y, P.z], dim=0), e)
+    want_b = oscan.tree_reduce_hybrid(omsm._split72(bg))
+    want_t = og.JPoints(P.x[:, 0, -1], P.y[:, 0, -1], P.z[:, 0, -1])
+    assert _equal(total, want_t)
+    assert _equal(bsums, want_b)

@@ -1,5 +1,8 @@
 """BENCHMARK.json against the contract it is written to, and the frozen
-yardstick, reference and trace arithmetic on their own."""
+yardstick, reference and trace arithmetic on their own. Each contract check
+runs over the committed manifest and over `tiny_root`'s, to which a second
+configuration, its cell and a per-layer metric are added as a later change
+adds them (the `manifest` fixture)."""
 from __future__ import annotations
 
 import hashlib
@@ -13,7 +16,7 @@ import pytest
 import devtrace
 import reference
 import yardstick
-from conftest import HERE, ROOT, TINY_CELL
+from conftest import HERE, RANGE_CONFIG, ROOT, TINY_CELL
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -27,85 +30,92 @@ KEYS = {
 }
 
 
-def _metrics():
-    return BENCH["end_to_end"] + BENCH["per_layer"]
+def _metrics(bench):
+    return bench["end_to_end"] + bench["per_layer"]
 
 
-def test_keys_and_names():
-    assert set(BENCH) == KEYS["top"]
-    for kind, entries in (("config", BENCH["configs"]), ("workload", BENCH["workloads"]),
-                          ("end_to_end", BENCH["end_to_end"]), ("per_layer", BENCH["per_layer"])):
+def test_keys_and_names(manifest):
+    bench, _ = manifest
+    assert set(bench) == KEYS["top"]
+    for kind, entries in (("config", bench["configs"]), ("workload", bench["workloads"]),
+                          ("end_to_end", bench["end_to_end"]), ("per_layer", bench["per_layer"])):
         for e in entries:
             assert set(e) <= KEYS[kind], e
             assert NAME.match(e["name"]), e["name"]
-    for w in BENCH["workloads"]:
+    for w in bench["workloads"]:
         assert NAME.match(w["config"]) and NAME.match(w["traffic"])
         assert w["chips"] in (1, 4)
-    names = [e["name"] for e in BENCH["configs"] + BENCH["workloads"] + _metrics()]
+    names = [e["name"] for e in bench["configs"] + bench["workloads"] + _metrics(bench)]
     assert len(names) == len(set(names))
-    for m in _metrics():
+    for m in _metrics(bench):
         assert UNIT.match(m["unit"]), m["unit"]
         assert m["better"] in ("lower", "higher")
-    for text in [e["why"] for e in BENCH["configs"] + BENCH["workloads"]] + [c["source"] for c in BENCH["configs"]] \
-            + [m["layer"] for m in BENCH["per_layer"]] + BENCH["command"]:
+    for text in [e["why"] for e in bench["configs"] + bench["workloads"]] + [c["source"] for c in bench["configs"]] \
+            + [m["layer"] for m in bench["per_layer"]] + bench["command"]:
         assert 1 <= len(text) <= 200 and "\n" not in text and "\t" not in text
-    assert len(json.dumps(BENCH)) <= 64 * 1024
+    assert len(json.dumps(bench)) <= 64 * 1024
 
 
-def test_every_file_is_found_by_name():
-    cells = {w["name"] for w in BENCH["workloads"]}
-    for c in BENCH["configs"]:
-        assert c["file"].startswith("portbench/") and (ROOT / c["file"]).is_file()
-        config = json.loads((ROOT / c["file"]).read_text())
-        assert (HERE / "drivers" / f"{config['entry']}.py").is_file()
-        assert any(w["config"] == c["name"] for w in BENCH["workloads"])
+def test_every_file_is_found_by_name(manifest):
+    bench, root = manifest
+    here = root / "portbench"
+    cells = {w["name"] for w in bench["workloads"]}
+    for c in bench["configs"]:
+        assert c["file"].startswith("portbench/") and (root / c["file"]).is_file()
+        config = json.loads((root / c["file"]).read_text())
+        assert (here / "drivers" / f"{config['entry']}.py").is_file()
+        assert any(w["config"] == c["name"] for w in bench["workloads"])
         for key in c["reduced"]:
             assert not re.search(r"(_dim|_rank|width|size)$", key)
-    for w in BENCH["workloads"]:
-        assert (HERE / "traffic" / f"{w['traffic']}.json").is_file()
-        traffic = json.loads((HERE / "traffic" / f"{w['traffic']}.json").read_text())
-        assert (HERE / "scalars" / f"{traffic['scalars']}.py").is_file()
-    for m in _metrics():
-        assert (HERE / "metrics" / f"{m['name']}.py").is_file()
+    for w in bench["workloads"]:
+        assert (here / "traffic" / f"{w['traffic']}.json").is_file()
+        traffic = json.loads((here / "traffic" / f"{w['traffic']}.json").read_text())
+        assert (here / "scalars" / f"{traffic['scalars']}.py").is_file()
+    for m in _metrics(bench):
+        assert (here / "metrics" / f"{m['name']}.py").is_file()
         assert set(m.get("workloads", cells)) <= cells
 
 
-def test_each_cell_reports_what_its_layer_metrics_move():
+def test_each_cell_reports_what_its_layer_metrics_move(manifest):
+    bench, _ = manifest
+
     def reports(metric, cell):
         return "workloads" not in metric or cell in metric["workloads"]
 
-    e2e = {m["name"]: m for m in BENCH["end_to_end"]}
+    e2e = {m["name"]: m for m in bench["end_to_end"]}
     assert "setup_s" in e2e and e2e["setup_s"]["bound"] <= 0.25
-    for m in BENCH["end_to_end"]:
+    for m in bench["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
-    for w in BENCH["workloads"]:
+    for w in bench["workloads"]:
         cell = w["name"]
         assert reports(e2e["setup_s"], cell)
         assert any(reports(m, cell) for n, m in e2e.items() if n != "setup_s")
-        assert any(reports(m, cell) for m in BENCH["per_layer"])
-    for m in BENCH["per_layer"]:
+        assert any(reports(m, cell) for m in bench["per_layer"])
+    for m in bench["per_layer"]:
         assert m["moves"] in e2e
-        for cell in m.get("workloads", [w["name"] for w in BENCH["workloads"]]):
+        for cell in m.get("workloads", [w["name"] for w in bench["workloads"]]):
             assert reports(e2e[m["moves"]], cell), (m["name"], cell)
     layers = {}
-    for m in BENCH["per_layer"]:
+    for m in bench["per_layer"]:
         layers.setdefault(m["layer"].lower(), set()).add(m["layer"])
     assert all(len(v) == 1 for v in layers.values())
 
 
-def test_run_seconds_fits_a_full_check():
-    rs = BENCH["run_seconds"]
+def test_run_seconds_fits_a_full_check(manifest):
+    bench, _ = manifest
+    rs = bench["run_seconds"]
     assert isinstance(rs, int) and 1 <= rs <= 51
     cells = 24
     assert (2 + 14 * cells) * (rs + 60) + cells * 2 * 90 + 1200 <= 43200
-    four = sum(1 for w in BENCH["workloads"] if w["chips"] == 4)
-    assert four <= max(1, len(BENCH["workloads"]) // 4)
+    four = sum(1 for w in bench["workloads"] if w["chips"] == 4)
+    assert four <= max(1, len(bench["workloads"]) // 4)
 
 
-def test_command_stays_in_paths():
-    assert BENCH["paths"] == ["portbench"]
-    assert BENCH["command"][0] == "python3"
-    for word in BENCH["command"][1:]:
+def test_command_stays_in_paths(manifest):
+    bench, _ = manifest
+    assert bench["paths"] == ["portbench"]
+    assert bench["command"][0] == "python3"
+    for word in bench["command"][1:]:
         assert not word.startswith("/") and ".." not in word
         if "/" in word:
             assert word.startswith("portbench/")
@@ -136,9 +146,18 @@ def test_canonical_counts():
     assert yardstick.PEAK_MUL32_PER_S == 67e12 / 4
 
 
-def test_configuration_derives_its_bases():
+# every configuration whose file states a `derivation`: the committed ones,
+# read where they are committed, and the one `tiny_root` adds
+DERIVED = {c["name"]: ROOT / c["file"] for c in BENCH["configs"]
+           if "derivation" in json.loads((ROOT / c["file"]).read_text())}
+
+
+@pytest.mark.parametrize("name", [*DERIVED, RANGE_CONFIG])
+def test_configuration_derives_its_bases(name, tiny_root):
     """The configuration's base count from its own numbers (`derivation`)."""
-    (c,) = [json.loads((ROOT / c["file"]).read_text()) for c in BENCH["configs"]]
+    path = DERIVED.get(name, tiny_root / "portbench" / "configs" / f"{name}.json")
+    c = json.loads(path.read_text())
+    assert "derivation" in c
     blocks, per = c["max_request_blocks"], c["whisk_validators_per_shuffle"]
     N = c["whisk_candidate_trackers_count"]
     assert c["candidates_touched"] == round(N * (1 - (1 - 1 / N) ** (per * blocks)))

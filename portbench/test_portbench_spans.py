@@ -5,11 +5,10 @@ span on another thread, and windows with no span or no device event."""
 from __future__ import annotations
 
 import importlib.util
-import json
 
 import devtrace
 import spans
-from conftest import HERE, ROOT
+from conftest import HERE
 
 MS = 1_000_000  # ns
 NEW = ("msm_prep_idle_ms", "msm_enqueue_idle_ms", "msm_readback_wait_ms", "msm_combine_ms")
@@ -89,13 +88,15 @@ def test_the_readers_read_nothing_without_spans_or_a_card():
     assert spans.host_ms_per_call(no_spans, "msm.combine") is None
 
 
-def test_the_four_metrics_are_declared():
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+def test_the_four_metrics_are_declared(manifest):
+    """Found by name wherever they stand in `per_layer`; a cell on another
+    engine may report them too (`msm.readback` and `msm.combine` are spans
+    every engine opens)."""
+    bench, _ = manifest
     entries = {m["name"]: m for m in bench["per_layer"]}
     for name in NEW:
         m = entries[name]
         assert (m["unit"], m["better"], m["source"]) == ("ms", "lower", "device_trace")
-        assert m["workloads"] == ["msm_range_sync_1024"]
+        assert "msm_range_sync_1024" in m["workloads"]
     assert [entries[n]["layer"] for n in NEW] == ["host enqueue"] * 2 + ["readback and combine"] * 2
     assert [entries[n]["moves"] for n in NEW] == ["msm_points_per_s"] * 2 + ["msm_p90_ms"] * 2
-    assert [m["name"] for m in bench["per_layer"]][-4:] == list(NEW)

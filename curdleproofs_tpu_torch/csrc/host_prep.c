@@ -28,6 +28,9 @@
 
 #include "glv_host.h"
 
+/* scalars split a block at a time before their digits are stored */
+#define DIG_BLOCK 256
+
 /* digit w (c bits) of a 3x64-limb little-endian value */
 static inline uint32_t digit_at(const u64 *k, int w, int c) {
     int b0 = w * c;
@@ -103,18 +106,30 @@ int curdle_msm_prep_batch(const uint8_t *scalars32_le, int64_t n_in, int c, int 
     int32_t maxocc = 0;
     int oom = 0;
 
+    /* the split a block of DIG_BLOCK scalars at a time, then the block's
+     * digits window by window, so each window's row is written in runs:
+     * rows n2 apart share cache sets */
+    const size_t nblocks = (n + DIG_BLOCK - 1) / DIG_BLOCK;
 #ifdef _OPENMP
 #pragma omp parallel for schedule(static)
 #endif
-    for (size_t i = 0; i < n; i++) {
-        u64 k[4], k1[3], k2[3];
-        int neg;
-        load_scalar(k, scalars32_le + 32 * i);
-        glv_decompose(k, &neg, k1, k2);
-        neg_out[i] = (uint8_t)neg;
+    for (size_t blk = 0; blk < nblocks; blk++) {
+        u64 k1[DIG_BLOCK][3], k2[DIG_BLOCK][3];
+        const size_t i0 = blk * DIG_BLOCK;
+        const size_t m = n - i0 < DIG_BLOCK ? n - i0 : DIG_BLOCK;
+        for (size_t j = 0; j < m; j++) {
+            u64 k[4];
+            int neg;
+            load_scalar(k, scalars32_le + 32 * (i0 + j));
+            glv_decompose(k, &neg, k1[j], k2[j]);
+            neg_out[i0 + j] = (uint8_t)neg;
+        }
         for (int w = 0; w < W; w++) {
-            dig[(size_t)w * n2 + i] = (uint16_t)digit_at(k1, w, c);
-            dig[(size_t)w * n2 + n + i] = (uint16_t)digit_at(k2, w, c);
+            uint16_t *d1 = dig + (size_t)w * n2 + i0, *d2 = d1 + n;
+            for (size_t j = 0; j < m; j++) {
+                d1[j] = (uint16_t)digit_at(k1[j], w, c);
+                d2[j] = (uint16_t)digit_at(k2[j], w, c);
+            }
         }
     }
 #ifdef _OPENMP
@@ -122,11 +137,10 @@ int curdle_msm_prep_batch(const uint8_t *scalars32_le, int64_t n_in, int c, int 
 #endif
     {
         /* per-thread scratch (windows are independent) */
-        int32_t *ord_t = (int32_t *)malloc(4 * n2);
         int32_t *cnt_t = (int32_t *)malloc(4 * (size_t)B);
         int32_t *incl_t = (int32_t *)malloc(4 * (size_t)B);
         int32_t *slotc_t = (int32_t *)malloc(4 * T);
-        const int ok = ord_t && cnt_t && incl_t && slotc_t;
+        const int ok = cnt_t && incl_t && slotc_t;
         if (!ok) {
 #ifdef _OPENMP
 #pragma omp atomic write
@@ -148,20 +162,13 @@ int curdle_msm_prep_batch(const uint8_t *scalars32_le, int64_t n_in, int c, int 
                 run += cb;
                 incl_t[b] = run;
             }
-            /* stable counting-sort placement */
-            for (size_t i = 0; i < n2; i++) ord_t[cnt_t[dw[i]]++] = (int32_t)i;
-            /* column-major relabel (cache-blocked transpose of the (L, T)
-             * rank matrix): flat position t*L + l = sorted rank l*T + t */
+            /* stable counting-sort placement, straight into the column-major
+             * layout: sorted rank r lands at flat position (r % T) * L + r / T */
             int32_t *oc = order_cm + (size_t)w * n2;
-            const size_t BT = 64;
-            for (size_t l0 = 0; l0 < (size_t)L; l0 += BT)
-                for (size_t t0 = 0; t0 < T; t0 += BT) {
-                    size_t l1 = l0 + BT < (size_t)L ? l0 + BT : (size_t)L;
-                    size_t t1 = t0 + BT < T ? t0 + BT : T;
-                    for (size_t l = l0; l < l1; l++)
-                        for (size_t t = t0; t < t1; t++)
-                            oc[t * (size_t)L + l] = ord_t[l * T + t];
-                }
+            for (size_t i = 0; i < n2; i++) {
+                const size_t r = (size_t)cnt_t[dw[i]]++;
+                oc[(r % T) * (size_t)L + r / T] = (int32_t)i;
+            }
             /* bucket-boundary ranks + full-prefix index tables */
             int32_t *ew = earr + (size_t)w * (B - 1);
             int32_t *bw = bidx + (size_t)w * (B - 1);
@@ -194,7 +201,7 @@ int curdle_msm_prep_batch(const uint8_t *scalars32_le, int64_t n_in, int c, int 
 #endif
             if (mo > maxocc) maxocc = mo;
         }
-        free(ord_t); free(cnt_t); free(incl_t); free(slotc_t);
+        free(cnt_t); free(incl_t); free(slotc_t);
     }
     if (oom) {
         free(dig); free(earr); free(slotc);

@@ -58,7 +58,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from curdleproofs_tpu_torch.curve import G1, msm_host
+from curdleproofs_tpu_torch.curve import _JINF, G1, _jadd, _jdbl, msm_host
 from curdleproofs_tpu_torch.fields import Fr
 from curdleproofs_tpu_torch.ops import cuda_g1
 from curdleproofs_tpu_torch.ops import g1 as og
@@ -128,16 +128,15 @@ HOST_THRESHOLD = 16
 
 
 def _combine_windows_host(total: G1, bsums: List[G1], c: int, num_windows: int) -> G1:
-    """S = sum_w 2^{cw} * ((B-1)*total - bsums[w]), Horner, exact host math."""
-    B = 1 << c
-    big = total * Fr(B - 1)
-    wins = [big - s for s in bsums]
-    acc = G1.identity()
+    """S = sum_w 2^{cw} * ((B-1)*total - bsums[w]), Horner, exact host math
+    in Jacobian coordinates (one inversion, at the end)."""
+    big = (total * Fr((1 << c) - 1))._jacobian()
+    acc = _JINF
     for w in reversed(range(num_windows)):
         for _ in range(c):
-            acc = acc + acc
-        acc = acc + wins[w]
-    return acc
+            acc = _jdbl(acc)
+        acc = _jadd(acc, _jadd(big, (-bsums[w])._jacobian()))
+    return G1._from_jacobian(acc)
 
 
 def pick_window(n: int) -> int:
@@ -705,38 +704,37 @@ def _stream_chunks(
     (None: the complete, full-prefix scan). route_futs, one future a window
     of `_solve_route`, puts the records into sorted order with the routed
     gather; None takes the direct gather. Returns [(total (24,), bsums
-    (24, wb), flags (wb,) or None)] a chunk, the launches still queued."""
+    (24, wb), flags (wb,) or None)] a chunk, the launches still queued. The
+    chunk's index tables go to the card inside one span `msm.stream.upload`."""
     dev = packed.device
     W = order_cm.shape[0]
     pending = []
     for w0 in range(0, W, window_batch):
         sl = slice(w0, w0 + window_batch)
-        lidx_d = from_reference(lidx[sl], dev)
         if route_futs is not None:
             with timed("msm.stream.route_wait"):
                 parts = [f.result() for f in route_futs[sl]]
-            gather_args = tuple(
-                from_reference(np.concatenate([p[k] for p in parts]), dev) for k in range(3)
-            )
-            sel_body, full_body = _stream_window_partials_routed_sel, _stream_window_partials_routed
-        else:
-            gather_args = (from_reference(order_cm[sl], dev),)
-            sel_body, full_body = _stream_window_partials_sel, _stream_window_partials
+        with timed("msm.stream.upload"):
+            lidx_d = from_reference(lidx[sl], dev)
+            if route_futs is not None:
+                gather_args = tuple(
+                    from_reference(np.concatenate([p[k] for p in parts]), dev) for k in range(3)
+                )
+                sel_body, full_body = _stream_window_partials_routed_sel, _stream_window_partials_routed
+            else:
+                gather_args = (from_reference(order_cm[sl], dev),)
+                sel_body, full_body = _stream_window_partials_sel, _stream_window_partials
+            if sel_all is not None:
+                tables = (
+                    from_reference(sel_all[w0 * T : (w0 + window_batch) * T], dev),
+                    from_reference(bpos_all[sl], dev),
+                )
+            else:
+                tables = (from_reference(bidx[sl], dev),)
         if sel_all is not None:
-            total, bsums, flags = sel_body(
-                packed,
-                *gather_args,
-                from_reference(sel_all[w0 * T : (w0 + window_batch) * T], dev),
-                from_reference(bpos_all[sl], dev),
-                lidx_d,
-                T,
-                L,
-                S,
-            )
+            total, bsums, flags = sel_body(packed, *gather_args, *tables, lidx_d, T, L, S)
         else:
-            total, bsums = full_body(
-                packed, *gather_args, from_reference(bidx[sl], dev), lidx_d, T, L
-            )
+            total, bsums = full_body(packed, *gather_args, *tables, lidx_d, T, L)
             flags = None
         pending.append((total, bsums, flags))
     return pending
@@ -804,9 +802,9 @@ def _msm_stream_impl(
     # ---- device -----------------------------------------------------------
     with timed("msm.stream.device"):
         if glv_split:
-            packed = _glv_stream_packed(
-                points.x, points.y, points.inf, from_reference(neg1, dev)
-            ).contiguous()
+            with timed("msm.stream.upload"):
+                neg1_d = from_reference(neg1, dev)
+            packed = _glv_stream_packed(points.x, points.y, points.inf, neg1_d).contiguous()
         else:
             packed = _pack_records(points)
         pending = _stream_chunks(
@@ -829,7 +827,8 @@ def _msm_stream_impl(
         # running prefix to equal the incoming base — essentially only
         # constructible on purpose). Redo on the doubling-safe full-prefix
         # pipeline: exactness preserved, cost ~2x once.
-        return _msm_stream_impl(points_in, scalars_in, c, None, sel_scan, routed, _safe=True)
+        with timed("msm.stream.redo"):
+            return _msm_stream_impl(points_in, scalars_in, c, None, sel_scan, routed, _safe=True)
     return out
 
 

@@ -47,6 +47,41 @@ def test_glv_decompose_batch_equals_numpy_and_jax():
     assert not k2.view("<u2").reshape(-1, 12)[:, 9:].any()
 
 
+def _rounding_turns():
+    """Scalars k where k * (lambda + 1) + floor(r / 2) lies within a few of
+    a multiple of r, so that the rounded quotient k2 turns over there."""
+    inv = pow(tglv.LAMBDA + 1, -1, FR_MOD)
+    half = FR_MOD // 2
+    rng = random.Random(19)
+    ts = [0, 1, 2, -1, -2] + [rng.randrange(-4096, 4096) for _ in range(64)]
+    return [((t - half) * inv + off) % FR_MOD for t in ts for off in (-1, 0, 1)]
+
+
+def _lambda_multiples():
+    """a * lambda + b at the ends of the quotient's range, and random k."""
+    lam = tglv.LAMBDA
+    rng = random.Random(29)
+    return [(a * lam + b) % FR_MOD for a in (0, 1, 2, lam - 1, lam, lam + 1) for b in (0, 1, lam - 1)] + [
+        rng.randrange(FR_MOD) for _ in range(256)
+    ]
+
+
+GLV_EDGES = {"rounding_turns": _rounding_turns, "lambda_multiples_and_random": _lambda_multiples}
+
+
+@pytest.mark.parametrize("where", sorted(GLV_EDGES))
+def test_glv_decompose_batch_at_its_rounding_edges(where):
+    """The native split against the plain-integer reference where the
+    rounded quotient turns over, and on multiples of lambda."""
+    ks = GLV_EDGES[where]()
+    sc = np.asarray(ints_to_limbs(ks, 16), dtype=np.uint32)
+    k1, neg, k2 = host_native.glv_decompose_batch(sc)
+    for j, k in enumerate(ks):
+        mag = int.from_bytes(k1[j].tobytes(), "little")
+        got = (-mag if neg[j] else mag, int.from_bytes(k2[j].tobytes(), "little"))
+        assert got == tglv.decompose_int(k), k
+
+
 def test_decompose_falls_back_to_numpy_without_a_compiler(monkeypatch):
     sc = _scalars(40, 5)
     want = tglv.decompose(sc.astype(np.uint64))

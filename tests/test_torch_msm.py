@@ -149,6 +149,41 @@ def test_combine_windows_host_equal_jax():
     assert same_point(got, want)
 
 
+def _affine_horner(total, bsums, c, W):
+    """The window combine one affine group operation at a time."""
+    big = total * Fr((1 << c) - 1)
+    acc = G1.identity()
+    for w in reversed(range(W)):
+        for _ in range(c):
+            acc = acc + acc
+        acc = acc + (big - bsums[w])
+    return acc
+
+
+COMBINE_CASES = {
+    # name: (total, window sums) as indices into the pool, None the identity,
+    # "big" the total times 2^c - 1 (its window term is the identity)
+    "random": (0, [1, 2, 3, 4]),
+    "identity_total": (None, [1, 2, 3, 4]),
+    "identity_windows": (0, [None, None, None, None]),
+    "window_term_vanishes": (0, ["big", 1, "big", 2]),
+    "equal_terms_double": (0, [1, 1, 1, 1]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(COMBINE_CASES))
+def test_combine_windows_host_equals_the_affine_horner(name):
+    """The Jacobian Horner (one inversion) against one affine operation at
+    a time, where terms vanish, repeat or are the identity."""
+    pts = _pool()[:5]
+    c, W = 5, 4
+    ti, wi = COMBINE_CASES[name]
+    total = G1.identity() if ti is None else pts[ti]
+    big = total * Fr((1 << c) - 1)
+    bsums = [G1.identity() if i is None else big if i == "big" else pts[i] for i in wi]
+    assert tmsm._combine_windows_host(total, bsums, c, W) == _affine_horner(total, bsums, c, W)
+
+
 # ---------------------------------------------------------------------------
 # device bodies, limb for limb
 # ---------------------------------------------------------------------------

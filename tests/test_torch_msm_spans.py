@@ -3,7 +3,9 @@ engines: with a `torch.profiler` recording, each span is a profiler range of
 its name, nested as the code nests (`msm.pippenger` > `.prep`, `.windows` >
 `msm.window.*` once a chunk; `msm.readback`, `msm.combine` once a call); with
 no profiler, `timed` never enters `record_function` and still records into
-the registry. On the CPU, against the host oracle; no JAX."""
+the registry. In the streaming engine, `msm.stream.upload` once a chunk and
+once for the GLV sign row, inside `msm.stream.device`, and `msm.stream.redo`
+only after a flagged collision. On the CPU, against the host oracle; no JAX."""
 import random
 
 import numpy as np
@@ -15,6 +17,7 @@ from curdleproofs_tpu_torch.curve import G1, msm_host
 from curdleproofs_tpu_torch.fields import FR_MOD, Fr
 from curdleproofs_tpu_torch.ops import g1 as tog
 from curdleproofs_tpu_torch.ops import msm as tmsm
+from curdleproofs_tpu_torch.ops import stream_scan as tstream
 from curdleproofs_tpu_torch.ops.fieldspec import from_reference, ints_to_limbs
 from curdleproofs_tpu_torch.utils import profiling
 
@@ -144,3 +147,63 @@ def test_timed_records_and_closes_its_span_on_an_error(profiled, monkeypatch):
     assert rep["span.error"]["total_point_ops"] == 5 and rep["span.after"]["calls"] == 1
     assert not hasattr(profiling.metrics(), "enabled")
 
+
+STREAM_W = 33  # pick_window(32) = 4: the GLV halves' 130 bits in 33 windows
+STREAM_BATCH = 12  # chunks of 12, 12 and 9 windows
+
+
+def _open_spans(monkeypatch, name):
+    """Each time the span `name` opens in `ops.msm`, the set of its spans
+    open around it (a stand-in for `timed` that keeps the nesting and
+    delegates to the real one)."""
+    real, stack, seen = tmsm.timed, [], []
+
+    class logged:
+        def __init__(self, span, *args, **kwargs):
+            self.span, self.inner = span, real(span, *args, **kwargs)
+
+        def __enter__(self):
+            if self.span == name:
+                seen.append(frozenset(stack))
+            stack.append(self.span)
+            return self.inner.__enter__()
+
+        def __exit__(self, *exc):
+            stack.pop()
+            return self.inner.__exit__(*exc)
+
+    monkeypatch.setattr(tmsm, "timed", logged)
+    return seen
+
+
+@pytest.mark.parametrize("flagged", [False, True], ids=["clean", "flagged"])
+def test_stream_upload_once_a_chunk_and_redo_only_when_flagged(inputs, monkeypatch, flagged):
+    """The selection scan's run uploads the sign row and then each chunk's
+    tables in a span of their own, inside `msm.stream.device`; a collision
+    flag (forced here) sends the call to the redo, whose own uploads (one
+    chunk at its default batch) lie inside `msm.stream.redo`."""
+    pts, scs, tp, limbs = inputs
+    monkeypatch.setattr(tmsm, "SEL_MIN_N", 256)
+    monkeypatch.setattr(tstream, "_LANES", 8)
+    scan_sel = tstream.scan_records_sel
+
+    def flag_every_window(*args, **kwargs):
+        bsel, totals, flags = scan_sel(*args, **kwargs)
+        return bsel, totals, torch.ones_like(flags)
+
+    if flagged:
+        monkeypatch.setattr(tstream, "scan_records_sel", flag_every_window)
+    uploads = _open_spans(monkeypatch, "msm.stream.upload")
+    with profiling.collect():
+        got = tmsm.msm_pippenger_stream(tp, limbs, window_batch=STREAM_BATCH)
+        rep = profiling.metrics_report()
+    assert got == msm_host(pts, scs)
+    chunks = -(-STREAM_W // STREAM_BATCH)
+    assert all("msm.stream.device" in around for around in uploads)
+    in_redo = sum("msm.stream.redo" in around for around in uploads)
+    assert len(uploads) - in_redo == chunks + 1
+    assert rep["msm.stream.upload"]["calls"] == len(uploads)
+    if flagged:
+        assert rep["msm.stream.redo"]["calls"] == 1 and in_redo == 1 + 1
+    else:
+        assert "msm.stream.redo" not in rep and in_redo == 0
